@@ -1,0 +1,290 @@
+"""Scikit-learn-style estimator for NBMF-MM on PyTorch (counterpart of
+the JAX package's ``models/estimator.py``).
+
+Keeps the reference estimator's contract (``siddC/nbmf_mm``
+``src/nbmf_mm/_base.py``): constructor names, fitted attributes (``W_``,
+``components_``, ``loss_curve_``, ``objective_history_``, ``loss_``,
+``n_iter_``, ``reconstruction_err_``), orientation aliases, "X must be
+binary", masked training, the 50-iteration ``transform`` fold-in and the
+``score``/``perplexity`` refit semantics.  ``device`` (default ``"cuda"``)
+and ``backend`` (``"auto"``/``"fused"``/``"plain"``) are this package's
+own; see :func:`nbmf_mm_tpu_torch.solver.driver.solve`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.updates import fold_in_w_update
+from ..solver.driver import _resolve_device, _resolve_dtype, _resolve_precision, solve
+from ..utils.validation import (
+    check_array,
+    check_is_fitted,
+    densify,
+    warn_large_sparse_densify,
+)
+
+__all__ = ["NBMFMM", "NBMF"]
+
+try:  # sklearn is optional; the estimator works standalone.
+    from sklearn.base import BaseEstimator, TransformerMixin
+
+    _BASES = (BaseEstimator, TransformerMixin)
+except Exception:  # pragma: no cover
+    _BASES = (object,)
+
+
+_ORIENTATION_ALIASES = {
+    # Canonical forms and case/synonym aliases (reference _base.py:127-137).
+    "beta-dir": "beta-dir",
+    "dir-beta": "dir-beta",
+    "Beta-Dir": "beta-dir",
+    "Dir-Beta": "dir-beta",
+    "Dir Beta": "dir-beta",
+    "binary ICA": "beta-dir",
+    "Binary ICA": "beta-dir",
+    "bICA": "beta-dir",
+    "Aspect Bernoulli": "dir-beta",
+}
+
+_FOLD_IN_ITERS = 50
+_FOLD_IN_SEED_OFFSET = 0x7F01  # transform's draw is seeded apart from fit's
+
+
+def _transform_core(H, Ym, Ym2, W0t, eps, *, n_iter: int):
+    """Fold-in: find W for new data with ``H`` fixed (reference
+    ``_base.py:178-193``), ``n_iter`` beta-dir W updates from ``W0t (k, m)``,
+    then the final box clip and row renormalization (``_base.py:196-198``)."""
+    n_features = H.shape[1]
+    Wt = W0t
+    for _ in range(n_iter):
+        Wt = fold_in_w_update(Wt, H, Ym, Ym2, n_features=n_features, eps=eps)
+    W = torch.clamp(Wt.T, 1e-8, 1.0)
+    return W / W.sum(dim=1, keepdim=True)
+
+
+class NBMFMM(*_BASES):
+    """Non-negative Binary Matrix Factorization via Majorization-Minimization.
+
+    PyTorch implementation of the NBMF-MM algorithm from P. Magron and
+    C. Fevotte, "A majorization-minimization algorithm for nonnegative binary
+    matrix factorization," IEEE Signal Processing Letters, 2022.
+
+    Parameters
+    ----------
+    n_components : int, default=10
+        Latent dimension ``k``.
+    alpha, beta : float, default=1.2
+        Beta-prior parameters for the continuous factor.
+    max_iter : int, default=2000
+        Maximum number of MM sweeps.
+    tol : float, default=1e-5
+        Relative-loss-change convergence tolerance.
+    W_init, H_init : array-like, optional
+        Warm-start factors (shapes ``(n_samples, k)`` / ``(k, n_features)``).
+    init : ignored
+        Present for API compatibility with the reference.
+    random_state : int or None
+        Seed for factor initialization (and for ``transform``'s fold-in).
+    verbose : int, default=0
+        Print loss every 10 sweeps when > 0.
+    orientation : str, default="beta-dir"
+        ``"beta-dir"`` or ``"dir-beta"``; aliases such as ``"Binary ICA"`` /
+        ``"Aspect Bernoulli"`` are canonicalized.
+    n_init : int, default=1
+        Only 1 is supported so far.
+    projection : {"normalize", "duchi"}, default="normalize"
+    mask_mode : {"parity", "corrected"}, default="parity"
+    dtype : optional
+        ``"float32"`` (default) or ``"float64"``.
+    precision : optional
+        ``None`` or ``"highest"``: IEEE fp32 products.
+    mesh : must be None
+    backend : {"auto", "fused", "plain"}, default="auto"
+    device : str or torch.device, default="cuda"
+        Where ``fit`` and ``transform`` run.
+    """
+
+    def __init__(
+        self,
+        n_components=10,
+        alpha=1.2,
+        beta=1.2,
+        max_iter=2000,
+        tol=1e-5,
+        W_init=None,
+        H_init=None,
+        init=None,
+        random_state=None,
+        verbose=0,
+        orientation="beta-dir",
+        n_init=1,
+        projection="normalize",
+        mask_mode="parity",
+        dtype=None,
+        precision=None,
+        mesh=None,
+        backend="auto",
+        device="cuda",
+    ):
+        self.n_components = n_components
+        self.alpha = alpha
+        self.beta = beta
+        self.max_iter = max_iter
+        self.tol = tol
+        self.W_init = W_init
+        self.H_init = H_init
+        self.init = init
+        self.random_state = random_state
+        self.verbose = verbose
+        self.orientation = orientation
+        self.n_init = n_init
+        self.projection = projection
+        self.mask_mode = mask_mode
+        self.dtype = dtype
+        self.precision = precision
+        self.mesh = mesh
+        self.backend = backend
+        self.device = device
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, X, y=None, mask=None):
+        """Fit the NBMF model to binary (or [0,1]-valued) data ``X``."""
+        X = check_array(X, accept_sparse="csr", dtype=np.float64)
+        values = X.data if hasattr(X, "toarray") else X
+        if not np.all((values >= 0) & (values <= 1)):
+            raise ValueError("X must be binary")
+
+        # Canonicalize and *store* the normalized orientation (reference
+        # _base.py:94-95).
+        orientation = self._normalize_orientation(self.orientation)
+        self.orientation = orientation
+
+        result = solve(
+            X,
+            n_components=self.n_components,
+            max_iter=self.max_iter,
+            tol=self.tol,
+            alpha=self.alpha,
+            beta=self.beta,
+            W_init=self.W_init,
+            H_init=self.H_init,
+            mask=mask,
+            random_state=self.random_state,
+            verbose=self.verbose,
+            orientation=orientation,
+            n_init=self.n_init,
+            projection=self.projection,
+            mask_mode=self.mask_mode,
+            dtype=self.dtype,
+            precision=self.precision,
+            mesh=self.mesh,
+            backend=self.backend,
+            device=self.device,
+        )
+        self._set_fitted(result.W, result.H, result.losses, result.n_iter,
+                         converged=result.converged, fit_time=result.time_elapsed)
+        self.solver_result_ = result
+        return self
+
+    def _set_fitted(self, W, H, losses, n_iter, *, converged, fit_time):
+        """Store the fitted attributes of the reference estimator."""
+        losses = list(losses)
+        self.W_ = W
+        self.components_ = H
+        self.loss_curve_ = losses
+        self.objective_history_ = losses  # backward-compat alias
+        self.loss_ = losses[-1] if losses else np.inf
+        self.n_iter_ = n_iter
+        self.reconstruction_err_ = self.loss_
+        self.converged_ = converged
+        self.fit_time_ = fit_time
+
+    def _normalize_orientation(self, orientation):
+        """Map orientation aliases to canonical form (reference
+        ``_base.py:124-143``); raise ``ValueError`` on unknown values."""
+        try:
+            return _ORIENTATION_ALIASES[orientation]
+        except (KeyError, TypeError):
+            raise ValueError(
+                f"Unknown orientation: {orientation}. "
+                f"Must be one of {list(_ORIENTATION_ALIASES.keys())}"
+            ) from None
+
+    def fit_transform(self, X, y=None):
+        """Fit to ``X`` and return ``W_`` (exactly ``fit(X).W_``)."""
+        self.fit(X)
+        return self.W_
+
+    # ------------------------------------------------------------ transform
+    def _fold_in_init(self, m: int, dtype: torch.dtype) -> torch.Tensor:
+        """Seeded U(0.1, 0.9) ``(k, m)`` start for the fold-in (CPU draw)."""
+        seed = 0 if self.random_state is None else int(self.random_state)
+        gen = torch.Generator().manual_seed(seed + _FOLD_IN_SEED_OFFSET)
+        return torch.rand((self.n_components, m), generator=gen, dtype=dtype) * 0.8 + 0.1
+
+    def transform(self, X, mask=None):
+        """Fold in new data: find W for ``X`` with fitted ``components_`` held
+        fixed, via 50 beta-dir multiplicative updates (reference
+        ``_base.py:162-199``), seeded from ``random_state``, on ``device``."""
+        check_is_fitted(self, ["components_"])
+        X = check_array(X, accept_sparse="csr", dtype=np.float64)
+        warn_large_sparse_densify(X, "transform")
+        X = densify(X)
+        if mask is not None:
+            warn_large_sparse_densify(mask, "transform (mask)")
+            mask = densify(mask)
+
+        dtype = _resolve_dtype(self.dtype)
+        _resolve_precision(self.precision)
+        device = _resolve_device(self.device)
+        Xt = torch.as_tensor(X, device=device).to(dtype)
+        H = torch.tensor(np.asarray(self.components_), device=device).to(dtype)
+        if mask is None:
+            Ym, Ym2 = Xt, 1.0 - Xt
+        else:
+            mt = torch.as_tensor(np.asarray(mask, dtype=np.float64), device=device).to(dtype)
+            Ym, Ym2 = Xt * mt, (1.0 - Xt) * mt
+        W0t = self._fold_in_init(X.shape[0], dtype).to(device)
+        W = _transform_core(H, Ym, Ym2, W0t, 1e-8, n_iter=_FOLD_IN_ITERS)
+        return W.cpu().numpy()
+
+    def inverse_transform(self, W):
+        """Reconstruct data-space probabilities ``clip(W @ H, 0, 1)``
+        (reference ``_base.py:201-210``)."""
+        check_is_fitted(self, ["components_"])
+        W = check_array(W, dtype=np.float64)
+        return np.clip(W @ self.components_, 0.0, 1.0)
+
+    # ---------------------------------------------------------------- score
+    def score(self, X, mask=None):
+        """Mean Bernoulli log-likelihood per observed entry of ``X`` under a
+        reconstruction refit via ``transform`` (reference ``_base.py:212-247``,
+        including the refit-from-scratch semantics and parity masking)."""
+        check_is_fitted(self, ["components_"])
+        X = check_array(X, accept_sparse="csr", dtype=np.float64)
+        warn_large_sparse_densify(X, "score")
+        X = densify(X)
+        X_recon = self.inverse_transform(self.transform(X))
+        eps = 1e-8
+        if mask is None:
+            log_lik = X * np.log(X_recon + eps) + (1 - X) * np.log(1 - X_recon + eps)
+            n_obs = X.size
+        else:
+            warn_large_sparse_densify(mask, "score (mask)")
+            mask = densify(mask)
+            X_masked = X * mask
+            log_lik = X_masked * np.log(X_recon + eps) + (1 - X_masked) * np.log(
+                1 - X_recon + eps
+            )
+            n_obs = np.count_nonzero(mask)
+        return float(np.sum(log_lik) / n_obs)
+
+    def perplexity(self, X, mask=None):
+        """``exp(-score(X, mask))`` (reference ``_base.py:249-265``)."""
+        return float(np.exp(-self.score(X, mask)))
+
+
+# Alias for backwards compatibility (reference _base.py:269).
+NBMF = NBMFMM

@@ -1,0 +1,96 @@
+"""Build the CUDA sources in ``ops/csrc/`` with ``nvcc`` at first use and load
+them with ``ctypes``.
+
+The sources expose a plain C interface (no PyTorch headers), so one ``nvcc``
+call builds them in seconds.  The library lands in
+``<checkout>/build/nbmf_mm_tpu_torch/`` under a name keyed on a hash of the
+sources and flags, so an edit rebuilds it and an unchanged tree reuses it.
+Nothing is imported or built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["load_library", "build_log", "BUILD_DIR", "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nbmf_mm_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # per-kernel registers / shared memory / spills, kept in the build log
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # W, H, words, words2, num, den, num_part, den_part, ll_part, ll,
+    # k, Mp, Np, bm, m_real, n_real, rows_per_split, eps, device, stream
+    "nbmf_hloss_terms_packed": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    # W, H, words, words2, T, k, Mp, Np, bm, n_real, eps, device, stream
+    "nbmf_w_terms_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (searched PATH, CUDA_HOME and /usr/local/cuda)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _library_path() -> Path:
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cu + cuh:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"libnbmf_sweep_{digest.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """What ``nvcc`` printed when it built the current library (ptxas
+    resource usage per kernel), or an empty string if it was reused."""
+    path = _library_path().with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with ``argtypes`` and
+    ``restype`` set on every entry point."""
+    out = _library_path()
+    if not out.exists():
+        cu, _ = _sources()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.nbmf_error_string.argtypes = [ctypes.c_int]
+    lib.nbmf_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,167 @@
+"""Core MM update and objective math for NBMF-MM on torch tensors
+(counterpart of the JAX package's ``ops/updates.py``).
+
+The model is ``V ~ Bernoulli(W @ H)`` with a simplex constraint on one
+factor and an elementwise Beta(alpha, beta) prior on the other.  Everything
+here uses the canonical "beta-dir" orientation in the internal layout:
+
+- ``W``: shape ``(k, m)``, columns sum to 1 (the simplex factor, transposed),
+- ``H``: shape ``(k, n)``, entries in ``(0, 1)`` (the Beta-prior factor).
+
+Masked data enters through three loop-invariant matrices from
+:func:`precompute_masked_terms`: ``Ym = Y * mask`` feeds the positive terms,
+``Ym2 = (1 - Y) * mask`` the W update's negative term, and ``Yc`` the H-update
+denominator and the objective (``1 - Ym`` in ``mask_mode="parity"``,
+``Ym2`` in ``"corrected"``).
+
+Matrix products run through ``torch.matmul``; the solver switches TF32 off
+on CUDA so float32 products stay IEEE fp32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .projection import project_columns_simplex_duchi
+
+__all__ = [
+    "precompute_masked_terms",
+    "clip_upper_interior",
+    "mm_sweep",
+    "map_objective",
+    "fold_in_w_update",
+]
+
+
+def precompute_masked_terms(
+    Y: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    mask_mode: str = "parity",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Precompute the loop-invariant masked matrices ``(Ym, Ym2, Yc)``.
+
+    With ``mask=None`` the two modes coincide and ``Ym2 is Yc``.
+    """
+    if mask_mode not in ("parity", "corrected"):
+        raise ValueError(f"unknown mask_mode: {mask_mode!r}")
+    if mask is None:
+        comp = 1.0 - Y
+        return Y, comp, comp
+    mask = mask.to(Y.dtype)
+    Ym = Y * mask
+    Ym2 = (1.0 - Y) * mask
+    Yc = (1.0 - Ym) if mask_mode == "parity" else Ym2
+    return Ym, Ym2, Yc
+
+
+def clip_upper_interior(eps: float, dtype: torch.dtype) -> float:
+    """Upper clip bound for the Beta factor, strictly below 1 in ``dtype``.
+
+    ``1 - eps`` with ``eps = 1e-8`` rounds to exactly 1.0 in float32, where H
+    could then reach the boundary and ``log(1 - H)`` become ``-inf``.  The
+    bound is the smaller of ``1 - eps`` and the largest value below 1 in
+    ``dtype`` (``0.99999994`` in float32; ``1 - 1e-8`` unchanged in float64).
+    Returned as a Python float, which is exact in ``dtype``.
+    """
+    one = torch.tensor(1.0, dtype=dtype)
+    below_one = torch.nextafter(one, torch.tensor(0.0, dtype=dtype))
+    return float(torch.minimum(one - eps, below_one))
+
+
+def _h_update(W, H, Ym, Yc, alpha, beta, eps):
+    """Multiplicative Beta-factor update (reference ``_solver.py:39-47``)."""
+    WH = W.T @ H  # (m, n)
+    num = H * (W @ (Ym / (WH + eps))) + (alpha - 1.0)
+    den = (1.0 - H) * (W @ (Yc / (torch.clamp_min(1.0 - WH, 0.0) + eps))) + (beta - 1.0)
+    H_new = num / (num + den + eps)
+    return torch.clamp(H_new, eps, clip_upper_interior(eps, H.dtype))
+
+
+def _w_update(W, H_new, Ym, Ym2, n_real, eps, projection):
+    """Multiplicative simplex-factor update (reference ``_solver.py:50-57``)."""
+    WHn = W.T @ H_new  # (m, n)
+    T = H_new @ (Ym / (WHn + eps)).T + (1.0 - H_new) @ (
+        Ym2 / (torch.clamp_min(1.0 - WHn, 0.0) + eps)
+    ).T
+    W_raw = W * T  # (k, m)
+    if projection == "normalize":
+        W_new = W_raw / n_real
+        col_sums = W_new.sum(dim=0, keepdim=True)
+        # Guard zero columns: keeps padded / degenerate cases NaN-free
+        # without changing live columns.
+        W_new = W_new / torch.where(col_sums > 0, col_sums, 1.0)
+    elif projection == "duchi":
+        W_new = project_columns_simplex_duchi(W_raw / n_real)
+    else:  # pragma: no cover - validated at the API boundary
+        raise ValueError(f"unknown projection: {projection!r}")
+    return W_new
+
+
+def mm_sweep(
+    W: torch.Tensor,
+    H: torch.Tensor,
+    Ym: torch.Tensor,
+    Ym2: torch.Tensor,
+    Yc: torch.Tensor,
+    *,
+    alpha: float,
+    beta: float,
+    n_real: int,
+    eps: float = 1e-8,
+    projection: str = "normalize",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full MM sweep: H update (old W) then W update (new H).
+
+    ``n_real`` is the number of columns of the data matrix, the MM scaling
+    constant of the simplex step (reference ``_solver.py:54``).
+    """
+    H_new = _h_update(W, H, Ym, Yc, alpha, beta, eps)
+    W_new = _w_update(W, H_new, Ym, Ym2, n_real, eps, projection)
+    return W_new, H_new
+
+
+def map_objective(
+    W: torch.Tensor,
+    H: torch.Tensor,
+    Ym: torch.Tensor,
+    Yc: torch.Tensor,
+    *,
+    alpha: float,
+    beta: float,
+    n_obs: float,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Negative MAP objective per observed entry (reference ``_solver.py:148-162``).
+
+    ``loss = -(sum(Ym log(WH+eps) + Yc log(1-WH+eps))
+              + (alpha-1) sum(log(H+eps)) + (beta-1) sum(log(1-H+eps))) / n_obs``
+    """
+    WH = W.T @ H
+    log_lik = Ym * torch.log(WH + eps) + Yc * torch.log(torch.clamp_min(1.0 - WH, 0.0) + eps)
+    prior_a = (alpha - 1.0) * torch.sum(torch.log(H + eps))
+    prior_b = (beta - 1.0) * torch.sum(torch.log(1.0 - H + eps))
+    return -(torch.sum(log_lik) + prior_a + prior_b) / n_obs
+
+
+def fold_in_w_update(
+    Wt: torch.Tensor,
+    H: torch.Tensor,
+    Ym: torch.Tensor,
+    Ym2: torch.Tensor,
+    *,
+    n_features: int,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """One fold-in iteration used by ``transform`` (reference ``_base.py:178-193``):
+    the beta-dir W update with ``H`` held fixed.  ``Wt`` has internal layout
+    ``(k, m)``; returns the updated ``(k, m)`` factor with unit column sums.
+    """
+    WHt = Wt.T @ H  # (m, n)
+    T = H @ (Ym / (WHt + eps)).T + (1.0 - H) @ (
+        Ym2 / (torch.clamp_min(1.0 - WHt, 0.0) + eps)
+    ).T
+    Wt = Wt * T / n_features
+    col_sums = Wt.sum(dim=0, keepdim=True)
+    return Wt / torch.where(col_sums > 0, col_sums, 1.0)

@@ -1,0 +1,474 @@
+"""NBMF-MM solver driver on PyTorch (counterpart of
+the JAX package's ``solver/driver.py``).
+
+Two loops solve one initialization, both on the caller's device:
+
+- :func:`_solve_core` — the plain loop (counterpart of the JAX ``"jnp"``
+  route): :func:`~nbmf_mm_tpu_torch.ops.updates.mm_sweep` and
+  :func:`~nbmf_mm_tpu_torch.ops.updates.map_objective` on dense operands;
+- :func:`_solve_core_fused` — the shifted-loss loop over bit-packed words
+  (counterpart of ``_solve_core_pallas`` with ``packed=True``): per sweep
+  one K1 pass (H-update terms and the previous sweep's loss) and one K2 pass
+  (W-update terms), :mod:`nbmf_mm_tpu_torch.ops.cuda_sweep`.
+
+Both read the stopping flag back to the host once per sweep and leave the
+loop when it is set; for one initialization that gives the results of the
+JAX package's freeze-select loop.  The "dir-beta" orientation runs the
+beta-dir loop on ``Y.T`` with the factors swapped, as the reference does.
+Random inits come from a CPU ``torch.Generator`` seeded with
+``random_state`` and then move to the device, so a seed gives the same
+inits on the CPU and on the card (they differ from JAX ``PRNGKey`` draws).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..ops import cuda_sweep as cs
+from ..ops.projection import project_columns_simplex_duchi
+from ..ops.updates import (
+    clip_upper_interior,
+    map_objective,
+    mm_sweep,
+    precompute_masked_terms,
+)
+
+__all__ = ["nbmf_mm_solver", "solve", "SolverResult"]
+
+_ORIENTATIONS = ("beta-dir", "dir-beta")
+_BACKENDS = ("auto", "fused", "plain")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+@dataclass
+class SolverResult:
+    """Full solver output (the tuple API of :func:`nbmf_mm_solver` is a view).
+
+    ``W`` is ``(m, k)`` and ``H`` is ``(k, n)`` in *external* notation for the
+    requested orientation, as numpy arrays.  ``losses`` has length ``n_iter``.
+    """
+
+    W: np.ndarray
+    H: np.ndarray
+    losses: List[float]
+    time_elapsed: float
+    n_iter: int
+    converged: bool
+    seed: Optional[int] = None
+    extras: dict = field(default_factory=dict)
+
+
+def _resolve_dtype(dtype) -> torch.dtype:
+    """``None`` -> float32; accepts torch dtypes, numpy dtypes and names."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    else:
+        name = str(dtype) if isinstance(dtype, str) else np.dtype(dtype).name
+    if name == "bfloat16":
+        raise _not_ported("dtype='bfloat16'", "Dense and precision routes")
+    if name not in ("float32", "float64"):
+        raise ValueError(f"dtype must be float32 or float64, got {dtype!r}")
+    return getattr(torch, name)
+
+
+def _resolve_device(device) -> torch.device:
+    """An explicit device; asking for CUDA without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be a CPU or CUDA device, got {device}")
+    return device
+
+
+def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device, binary: bool) -> str:
+    """Pick the solver loop: ``"fused"`` or ``"plain"``.
+
+    ``"auto"`` takes the fused kernel loop for float32 on a CUDA device with
+    exactly-binary operands, and the plain loop for float64 or on the CPU.
+    Non-binary float32 data on CUDA raises: its dense kernels are not
+    ported, and ``backend="plain"`` runs it when asked for.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+    if backend == "plain":
+        return "plain"
+    if backend == "fused":
+        if not binary:
+            raise ValueError("backend='fused' requires exactly binary data (and mask)")
+        if device.type == "cuda" and dtype != torch.float32:
+            raise ValueError("backend='fused' on a CUDA device requires dtype=float32")
+        return "fused"
+    if dtype == torch.float64 or device.type != "cuda":
+        return "plain"
+    if not binary:
+        raise _not_ported(
+            "non-binary [0, 1] data on CUDA under backend='auto' "
+            "(pass backend='plain' to run the plain loop)",
+            "dense kernels K4-K8",
+        )
+    return "fused"
+
+
+def _exactly_binary(A: Optional[torch.Tensor]) -> bool:
+    """True when every entry of ``A`` is exactly 0 or 1 (None counts as
+    binary): the eligibility rule for the bit-packed loop."""
+    if A is None:
+        return True
+    return bool(((A == 0) | (A == 1)).all())
+
+
+def _resolve_precision(precision) -> None:
+    if precision is None or (isinstance(precision, str) and precision.lower() == "highest"):
+        return None
+    raise _not_ported(f"precision={precision!r}", "Dense and precision routes")
+
+
+def _check_converged(prev: torch.Tensor, loss: torch.Tensor, tol: float) -> bool:
+    """The reference's relative-change rule (``_solver.py:169-175``)."""
+    return bool(torch.abs(prev - loss) / torch.abs(prev) < tol)
+
+
+def _solve_core(Ym, Ym2, Yc, W0, H0, *, alpha, beta, tol, eps, n_obs, n_real,
+                max_iter: int, projection: str, verbose: int):
+    """Plain MM loop for one initialization (internal beta-dir layout:
+    ``W0`` is ``(k, m)`` with unit column sums, ``H0`` is ``(k, n)``).
+
+    Returns ``(W, H, losses, n_iter, converged)`` with ``losses`` a
+    ``(max_iter,)`` tensor whose entries past ``n_iter`` are zero.
+    """
+    W, H = W0, H0
+    losses = torch.zeros(max_iter, dtype=W0.dtype, device=W0.device)
+    prev = torch.tensor(float("inf"), dtype=W0.dtype, device=W0.device)
+    it, done = 0, False
+    while it < max_iter and not done:
+        W, H = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta, n_real=n_real,
+                        eps=eps, projection=projection)
+        loss = map_objective(W, H, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs, eps=eps)
+        if verbose > 0 and it % 10 == 0:
+            print(f"Iter {it}: Loss = {float(loss)}")
+        losses[it] = loss
+        # The stopping sweep's loss is still recorded: len(losses) == n_iter.
+        done = it > 0 and _check_converged(prev, loss, tol)
+        prev = loss
+        it += 1
+    return W, H, losses, it, done
+
+
+def _solve_core_fused(words, words2_h, words2_w, W0p, H0p, *, alpha, beta, tol, eps, n_obs,
+                      m_real: int, n_real: int, bm: int, max_iter: int, projection: str,
+                      verbose: int):
+    """Shifted-loss MM loop over packed words (``_solve_core_pallas``).
+
+    The loss the reference reports after sweep ``t`` is evaluated on the same
+    ``W.T @ H`` that the next sweep's H pass forms, so both come out of one
+    K1 call: the body at counter ``it`` records the loss of sweep ``it-1``
+    and makes the stopping decision the reference made before sweep ``it``.
+    One more K1 call after the loop fills the last entry when ``max_iter``
+    runs out.  ``words2_h`` is K1's second word array (corrected mode only),
+    ``words2_w`` K2's (both masked modes).  Operands are padded to
+    ``(Mp, Np)``; results come back padded.
+    """
+    dtype, device = W0p.dtype, W0p.device
+    upper = clip_upper_interior(eps, dtype)
+
+    def hloss(W, H):
+        return cs.hloss_terms_packed(W, H, words, words2_h, eps=eps, m_real=m_real,
+                                     n_real=n_real, bm=bm)
+
+    def objective_from_ll(ll, H):
+        H_real = H[:, :n_real]
+        prior_a = (alpha - 1.0) * torch.sum(torch.log(H_real + eps))
+        prior_b = (beta - 1.0) * torch.sum(torch.log(1.0 - H_real + eps))
+        return -(ll + prior_a + prior_b) / n_obs
+
+    def finish_sweep(W, H, Num, Den):
+        num = H * Num + (alpha - 1.0)
+        den = (1.0 - H) * Den + (beta - 1.0)
+        H_new = cs.apply_col_validity(torch.clamp(num / (num + den + eps), eps, upper), n_real)
+        T = cs.w_terms_packed(W, H_new, words, words2_w, eps=eps, n_real=n_real, bm=bm)
+        W_raw = W * T
+        if projection == "normalize":
+            W_new = W_raw / n_real
+            col_sums = W_new.sum(dim=0, keepdim=True)
+            W_new = W_new / torch.where(col_sums > 0, col_sums, 1.0)
+        else:  # duchi: re-zero the pad columns the projection would fill
+            W_new = cs.apply_col_validity(project_columns_simplex_duchi(W_raw / n_real), m_real)
+        return W_new, H_new
+
+    W, H = W0p, H0p
+    losses = torch.zeros(max_iter, dtype=dtype, device=device)
+    prev = torch.tensor(float("inf"), dtype=dtype, device=device)
+    it, done = 0, False
+    while it < max_iter:
+        Num, Den, ll = hloss(W, H)
+        if it >= 1:
+            loss = objective_from_ll(ll, H)  # loss of sweep it-1
+            if verbose > 0 and (it - 1) % 10 == 0:
+                print(f"Iter {it - 1}: Loss = {float(loss)}")
+            losses[it - 1] = loss
+            # Needs two recorded losses; on a stop the carry stays as it is.
+            done = it >= 2 and _check_converged(prev, loss, tol)
+            if done:
+                break
+            prev = loss
+        W, H = finish_sweep(W, H, Num, Den)
+        it += 1
+
+    if not done:
+        # max_iter ran out: the last sweep's loss was never recorded.
+        _, _, ll_fin = hloss(W, H)
+        loss_fin = objective_from_ll(ll_fin, H)
+        losses[max(it - 1, 0)] = loss_fin
+        done = it >= 2 and _check_converged(prev, loss_fin, tol)
+    return W, H, losses, it, done
+
+
+def _final_simplex_safeguard(W_final, H_final, orientation):
+    """Renormalization safeguard replicating ``_solver.py:186-213``: if the
+    simplex factor drifted more than 1e-9 from unit sums, renormalize
+    (guarding degenerate all-zero slices).  Numpy arrays in and out."""
+    tiny, tol = 1e-12, 1e-9
+    if orientation == "beta-dir":
+        if W_final.size:
+            row_sums = W_final.sum(axis=1, keepdims=True)
+            dev = float(np.max(np.abs(row_sums - 1.0)))
+            if np.isfinite(dev) and dev > tol:
+                safe = row_sums > tiny
+                if bool(np.any(safe)):
+                    W_final = np.where(safe, W_final / np.where(safe, row_sums, 1.0), W_final)
+    else:
+        if H_final.size:
+            col_sums = H_final.sum(axis=0, keepdims=True)
+            dev = float(np.max(np.abs(col_sums - 1.0)))
+            if np.isfinite(dev) and dev > tol:
+                safe = col_sums > tiny
+                if bool(np.any(safe)):
+                    H_final = np.where(safe, H_final / np.where(safe, col_sums, 1.0), H_final)
+    return W_final, H_final
+
+
+def _to_tensor(A, dtype, device) -> torch.Tensor:
+    if isinstance(A, torch.Tensor):
+        return A.to(device=device, dtype=dtype)
+    if hasattr(A, "toarray") or type(A).__name__ == "PackedMatrix":
+        raise _not_ported("PackedMatrix and scipy.sparse input", "Packed input and sparse ingest")
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return torch.as_tensor(np.asarray(A, dtype=np_dtype), device=device)
+
+
+def _pad(A: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return torch.nn.functional.pad(A, (0, cols - A.shape[1], 0, rows - A.shape[0]))
+
+
+def solve(
+    Y,
+    n_components: int,
+    max_iter: int = 500,
+    tol: float = 1e-5,
+    alpha: float = 1.2,
+    beta: float = 1.2,
+    W_init=None,
+    H_init=None,
+    mask=None,
+    random_state: Optional[int] = None,
+    verbose: int = 0,
+    orientation: str = "beta-dir",
+    eps: float = 1e-8,
+    *,
+    n_init: int = 1,
+    projection: str = "normalize",
+    mask_mode: str = "parity",
+    dtype=None,
+    precision=None,
+    mesh=None,
+    backend: str = "auto",
+    return_all: bool = False,
+    device_results: bool = False,
+    device="cuda",
+) -> SolverResult:
+    """Solve ``Y ~ Bernoulli(W @ H)`` by MM and return a :class:`SolverResult`.
+
+    Semantics mirror the JAX package's ``solve`` for the options this package
+    supports:
+
+    - ``orientation``: ``"beta-dir"`` or ``"dir-beta"`` (solved as beta-dir on
+      ``Y.T``; a custom init then needs both factors);
+    - ``mask`` with ``mask_mode`` ``"parity"`` or ``"corrected"``; an all-zero
+      mask raises;
+    - ``projection``: ``"normalize"`` or ``"duchi"``;
+    - ``W_init``/``H_init``, renormalized with the zero-column guard;
+      ``max_iter=0`` returns the initial factors untouched;
+    - ``dtype``: float32 (default) or float64; ``precision``: ``None`` or
+      ``"highest"`` (IEEE fp32 products, TF32 off);
+    - ``device``: an explicit ``torch.device`` (default ``"cuda"``, which
+      raises on a machine without a GPU; nothing moves to the CPU unasked);
+    - ``backend``: ``"auto"``, ``"fused"`` (the packed kernel loop; CPU
+      tensors go through the kernels' plain versions) or ``"plain"`` (dense
+      ``mm_sweep`` loop), see :func:`_resolve_backend`.
+
+    ``n_init > 1``, ``return_all``, ``mesh``, ``device_results``,
+    ``PackedMatrix``/``scipy.sparse`` input, ``dtype="bfloat16"`` and
+    precisions ``"default"``/``"high"`` raise ``NotImplementedError``.
+    """
+    if orientation not in _ORIENTATIONS:
+        raise ValueError(f"orientation must be one of {_ORIENTATIONS}, got {orientation!r}")
+    if projection not in ("normalize", "duchi"):
+        raise ValueError(f"projection must be 'normalize' or 'duchi', got {projection!r}")
+    if mask_mode not in ("parity", "corrected"):
+        raise ValueError(f"mask_mode must be 'parity' or 'corrected', got {mask_mode!r}")
+    if n_init < 1:
+        raise ValueError(f"n_init must be >= 1, got {n_init}")
+    if n_init > 1 or return_all:
+        raise _not_ported("n_init > 1 and return_all", "Restarts and grids")
+    if mesh is not None:
+        raise _not_ported("mesh", "Multi-GPU")
+    if device_results:
+        raise _not_ported("device_results", "Device-resident results")
+    _resolve_precision(precision)
+    dtype = _resolve_dtype(dtype)
+    device = _resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.time()
+    Y = _to_tensor(Y, dtype, device)
+    if mask is not None:
+        mask = _to_tensor(mask, dtype, device)
+
+    transposed = orientation == "dir-beta"
+    if transposed:
+        Y = Y.T
+        if mask is not None:
+            mask = mask.T
+        if (W_init is None) != (H_init is None):
+            raise ValueError(
+                "orientation='dir-beta' with a custom init requires BOTH W_init and H_init"
+            )
+        if W_init is not None:
+            W_init, H_init = np.asarray(H_init).T, np.asarray(W_init).T
+
+    m, n = Y.shape
+    k = int(n_components)
+    seed = (int(np.random.SeedSequence().entropy % (2**63)) if random_state is None
+            else int(random_state))
+
+    # U(0.1, 0.9) inits from a CPU generator, then moved to the device.
+    gen = torch.Generator().manual_seed(seed)
+    W0_draw = torch.rand((m, k), generator=gen, dtype=dtype) * 0.8 + 0.1
+    H0_draw = torch.rand((k, n), generator=gen, dtype=dtype) * 0.8 + 0.1
+    W0_ext = W0_draw if W_init is None else torch.tensor(np.asarray(W_init), dtype=dtype)
+    H0 = H0_draw if H_init is None else torch.tensor(np.asarray(H_init), dtype=dtype)
+    if tuple(W0_ext.shape) != (m, k):
+        raise ValueError(f"W_init must have shape {(m, k)}, got {tuple(W0_ext.shape)}")
+    if tuple(H0.shape) != (k, n):
+        raise ValueError(f"H_init must have shape {(k, n)}, got {tuple(H0.shape)}")
+    # Internal layout: W is (k, m) with unit column sums.  Zero columns (a
+    # returned factor's fully-unobserved samples) stay zero instead of 0/0.
+    W0 = W0_ext.T.to(device)
+    W0_sums = W0.sum(dim=0, keepdim=True)
+    W0 = (W0 / torch.where(W0_sums > 0, W0_sums, 1.0)).contiguous()
+    H0 = H0.to(device).contiguous()
+
+    if mask is None:
+        n_obs = float(m * n)
+    else:
+        n_obs = float(torch.count_nonzero(mask))
+        if n_obs == 0.0:
+            raise ValueError(
+                "mask has no observed entries (all zeros): the per-entry "
+                "objective is undefined with n_obs == 0"
+            )
+
+    if max_iter <= 0:
+        W_final, H_final = W0.T.cpu().numpy(), H0.cpu().numpy()
+        if transposed:
+            W_final, H_final = H_final.T, W_final.T
+        return SolverResult(W=W_final, H=H_final, losses=[], time_elapsed=time.time() - t_start,
+                            n_iter=0, converged=False, seed=seed)
+
+    if backend == "plain":
+        route = "plain"
+    else:
+        # The operands the packed loop streams must be exactly 0/1: Ym and
+        # Ym2 after masking, so values at unobserved entries do not matter.
+        if mask is None:
+            Ym, Ym2 = Y, None
+        else:
+            Ym, Ym2 = Y * mask, (1.0 - Y) * mask
+        route = _resolve_backend(backend, dtype, device,
+                                 _exactly_binary(Ym) and _exactly_binary(Ym2))
+
+    hypers = dict(alpha=alpha, beta=beta, tol=tol, eps=eps, n_obs=n_obs,
+                  max_iter=max_iter, projection=projection, verbose=verbose)
+    if route == "fused":
+        bm, Mp, Np = cs.plan_packing(m, n)
+        words = cs.pack_bits(_pad(Ym, Mp, Np), bm)
+        words2 = None if Ym2 is None else cs.pack_bits(_pad(Ym2, Mp, Np), bm)
+        del Ym, Ym2
+        W, H, losses, n_iter, done = _solve_core_fused(
+            words, words2 if mask_mode == "corrected" else None, words2,
+            _pad(W0, k, Mp), _pad(H0, k, Np), m_real=m, n_real=n, bm=bm, **hypers,
+        )
+        W, H = W[:, :m], H[:, :n]
+    else:
+        Ym, Ym2, Yc = precompute_masked_terms(Y, mask, mask_mode)
+        W, H, losses, n_iter, done = _solve_core(Ym, Ym2, Yc, W0, H0, n_real=n, **hypers)
+
+    W_final = W.T.cpu().numpy()  # external (m, k)
+    H_final = H.cpu().numpy()
+    if transposed:
+        W_final, H_final = H_final.T, W_final.T
+    W_final, H_final = _final_simplex_safeguard(W_final, H_final, orientation)
+    if verbose > 0 and done and n_iter < max_iter:
+        print(f"Converged at iteration {n_iter - 1}")
+    return SolverResult(
+        W=W_final,
+        H=H_final,
+        losses=[float(x) for x in losses[:n_iter].cpu().numpy()],
+        time_elapsed=time.time() - t_start,
+        n_iter=n_iter,
+        converged=done,
+        seed=seed,
+        extras={"backend": route},
+    )
+
+
+def nbmf_mm_solver(
+    Y,
+    n_components: int,
+    max_iter: int = 500,
+    tol: float = 1e-5,
+    alpha: float = 1.2,
+    beta: float = 1.2,
+    W_init=None,
+    H_init=None,
+    mask=None,
+    random_state: Optional[int] = None,
+    verbose: int = 0,
+    orientation: str = "beta-dir",
+    eps: float = 1e-8,
+    **kwargs,
+):
+    """Reference-style tuple API: ``(W, H, losses, time_elapsed, n_iter)``.
+    Extra keyword arguments are forwarded to :func:`solve`."""
+    res = solve(
+        Y, n_components, max_iter=max_iter, tol=tol, alpha=alpha, beta=beta,
+        W_init=W_init, H_init=H_init, mask=mask, random_state=random_state,
+        verbose=verbose, orientation=orientation, eps=eps, **kwargs,
+    )
+    return res.W, res.H, res.losses, res.time_elapsed, res.n_iter

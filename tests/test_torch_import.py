@@ -1,0 +1,149 @@
+"""The PyTorch port's import boundary, device contract and routing.
+
+The port never imports JAX; CUDA is used only when asked for and raises
+where there is no card; CPU tensors take the kernels' plain versions.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import nbmf_mm_tpu_torch as nbt
+from nbmf_mm_tpu_torch.ops import cuda_sweep as cs
+from nbmf_mm_tpu_torch.solver.driver import _resolve_backend
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CUDA = torch.device("cuda")
+CPU = torch.device("cpu")
+
+
+def _binary(m=24, n=16, seed=0):
+    return (np.random.default_rng(seed).random((m, n)) < 0.4).astype(np.float64)
+
+
+def _require_no_card():
+    # Decided inside the test: these check the GPU-less contract.
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the GPU-less contract")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys; sys.path.insert(0, %r); import nbmf_mm_tpu_torch, "
+        "nbmf_mm_tpu_torch.ops.cuda_sweep, nbmf_mm_tpu_torch.ops._build, "
+        "nbmf_mm_tpu_torch.utils.interop; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'nbmf_mm_tpu' or m.startswith('nbmf_mm_tpu.')]; "
+        "assert not bad, bad; print('ok')" % REPO
+    )
+    # -I: no PYTHONPATH / site hooks that could pre-import jax.
+    out = subprocess.run([sys.executable, "-I", "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_public_surface():
+    for name in ("NBMF", "NBMFMM", "solve", "nbmf_mm_solver", "SolverResult", "__version__"):
+        assert hasattr(nbt, name)
+    assert nbt.NBMF is nbt.NBMFMM
+    assert isinstance(nbt.__version__, str)
+
+
+def test_cuda_device_raises_without_card():
+    _require_no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        nbt.solve(_binary(), 2, max_iter=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        nbt.NBMF(n_components=2, max_iter=3).fit(_binary())
+
+
+def test_fused_on_cpu_uses_plain_versions():
+    cs.LAUNCHES.update(hloss_terms_packed=0, w_terms_packed=0)
+    res = nbt.solve(_binary(), 2, max_iter=5, random_state=0, backend="fused",
+                    dtype="float64", device="cpu")
+    assert res.extras["backend"] == "fused"
+    assert res.n_iter == 5 and len(res.losses) == 5
+    assert cs.LAUNCHES == {"hloss_terms_packed": 0, "w_terms_packed": 0}
+
+
+@pytest.mark.parametrize(
+    "backend, dtype, device, binary, expected",
+    [
+        ("auto", torch.float32, CUDA, True, "fused"),
+        ("auto", torch.float64, CUDA, True, "plain"),
+        ("auto", torch.float64, CUDA, False, "plain"),
+        ("auto", torch.float32, CPU, True, "plain"),
+        ("auto", torch.float32, CPU, False, "plain"),
+        ("plain", torch.float32, CUDA, False, "plain"),
+        ("fused", torch.float32, CUDA, True, "fused"),
+        ("fused", torch.float64, CPU, True, "fused"),
+    ],
+)
+def test_resolve_backend(backend, dtype, device, binary, expected):
+    assert _resolve_backend(backend, dtype, device, binary) == expected
+
+
+def test_resolve_backend_nonbinary_cuda_auto_not_ported():
+    with pytest.raises(NotImplementedError, match="dense kernels K4-K8"):
+        _resolve_backend("auto", torch.float32, CUDA, False)
+
+
+@pytest.mark.parametrize(
+    "backend, dtype, device, binary",
+    [
+        ("fused", torch.float32, CPU, False),
+        ("fused", torch.float64, CUDA, True),
+        ("jnp", torch.float32, CPU, True),
+    ],
+)
+def test_resolve_backend_rejects(backend, dtype, device, binary):
+    with pytest.raises(ValueError):
+        _resolve_backend(backend, dtype, device, binary)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(n_init=2),
+        dict(return_all=True),
+        dict(mesh=object()),
+        dict(dtype="bfloat16"),
+        dict(precision="default"),
+        dict(precision="high"),
+        dict(device_results=True),
+    ],
+    ids=["n_init", "return_all", "mesh", "bfloat16", "precision-default",
+         "precision-high", "device_results"],
+)
+def test_options_left_out_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nbt.solve(_binary(), 2, max_iter=2, device="cpu", **kwargs)
+
+
+def test_sparse_input_not_ported():
+    sp = pytest.importorskip("scipy.sparse")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        nbt.solve(sp.csr_matrix(_binary()), 2, max_iter=2, device="cpu")
+
+
+def test_precision_highest_accepted():
+    res = nbt.solve(_binary(), 2, max_iter=2, device="cpu", precision="highest",
+                    dtype="float64", random_state=1)
+    assert res.n_iter == 2
+
+
+def test_wrapper_rejects_other_devices():
+    W = torch.zeros((2, 32), device="meta")
+    H = torch.zeros((2, 4), device="meta")
+    words = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cs.hloss_terms_packed(W, H, words, eps=1e-8, m_real=32, n_real=4, bm=32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cs.w_terms_packed(W, H, words, eps=1e-8, n_real=4, bm=32)
