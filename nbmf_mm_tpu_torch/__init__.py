@@ -4,16 +4,21 @@ kernels for NVIDIA Hopper (H100).
 This package is the PyTorch port of the JAX package beside it.  It mirrors that
 package's tree (``ops/``, ``solver/``, ``models/``, ``utils/``) so each module
 has a counterpart, and it never imports JAX.  The fit path on exactly-binary
-data runs the shifted-loss MM loop over bit-packed words
-(:func:`nbmf_mm_tpu_torch.solver.driver.solve`), whose two passes per sweep
+data runs the shifted-loss MM loop over bit-packed words, and on
+``[0, 1]``-valued data or under a weighted mask over dense operands
+(:func:`nbmf_mm_tpu_torch.solver.driver.solve`); the two passes per sweep
 are CUDA kernels built from ``ops/csrc/`` at first use
-(:mod:`nbmf_mm_tpu_torch.ops.cuda_sweep`).
+(:mod:`nbmf_mm_tpu_torch.ops.cuda_sweep`,
+:mod:`nbmf_mm_tpu_torch.ops.dense_sweep`).  Serving folds new rows in
+against a fitted model through the same W-pass kernels
+(:class:`FoldInServer`, :func:`fold_in_fused`).
 
 Public surface: ``NBMF``/``NBMFMM``, :func:`solve`, :func:`nbmf_mm_solver`,
-:class:`SolverResult`.
+:class:`SolverResult`, :class:`FoldInServer`, :func:`fold_in_fused`.
 """
 
 from .models.estimator import NBMF, NBMFMM
+from .models.serving import FoldInServer, fold_in_fused
 from .solver.driver import SolverResult, nbmf_mm_solver, solve
 
 __version__ = "0.1.0"
@@ -24,5 +29,7 @@ __all__ = [
     "nbmf_mm_solver",
     "solve",
     "SolverResult",
+    "FoldInServer",
+    "fold_in_fused",
     "__version__",
 ]

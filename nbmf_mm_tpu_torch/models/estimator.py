@@ -8,7 +8,9 @@ Keeps the reference estimator's contract (``siddC/nbmf_mm``
 binary", masked training, the 50-iteration ``transform`` fold-in and the
 ``score``/``perplexity`` refit semantics.  ``device`` (default ``"cuda"``)
 and ``backend`` (``"auto"``/``"fused"``/``"plain"``) are this package's
-own; see :func:`nbmf_mm_tpu_torch.solver.driver.solve`.
+own; see :func:`nbmf_mm_tpu_torch.solver.driver.solve`.  Large fold-ins on
+the card run through the fused serving kernels
+(:func:`nbmf_mm_tpu_torch.models.serving.fold_in_fused`).
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ _ORIENTATION_ALIASES = {
 
 _FOLD_IN_ITERS = 50
 _FOLD_IN_SEED_OFFSET = 0x7F01  # transform's draw is seeded apart from fit's
+# Entry count from which backend="auto" routes transform through the fused
+# fold-in kernels on the card (the JAX package's gate, estimator.py:292).
+_FUSED_TRANSFORM_MIN_ENTRIES = 1 << 22
 
 
 def _transform_core(H, Ym, Ym2, W0t, eps, *, n_iter: int):
@@ -102,6 +107,9 @@ class NBMFMM(*_BASES):
         ``None`` or ``"highest"``: IEEE fp32 products.
     mesh : must be None
     backend : {"auto", "fused", "plain"}, default="auto"
+    packed : {None, False, True}, default=None
+        Stream exactly-binary operands as packed words (``None``), always
+        dense (``False``), or require packing (``True``); see ``solve``.
     device : str or torch.device, default="cuda"
         Where ``fit`` and ``transform`` run.
     """
@@ -126,6 +134,7 @@ class NBMFMM(*_BASES):
         precision=None,
         mesh=None,
         backend="auto",
+        packed=None,
         device="cuda",
     ):
         self.n_components = n_components
@@ -146,6 +155,7 @@ class NBMFMM(*_BASES):
         self.precision = precision
         self.mesh = mesh
         self.backend = backend
+        self.packed = packed
         self.device = device
 
     # ------------------------------------------------------------------ fit
@@ -181,6 +191,7 @@ class NBMFMM(*_BASES):
             precision=self.precision,
             mesh=self.mesh,
             backend=self.backend,
+            packed=self.packed,
             device=self.device,
         )
         self._set_fitted(result.W, result.H, result.losses, result.n_iter,
@@ -224,10 +235,25 @@ class NBMFMM(*_BASES):
         gen = torch.Generator().manual_seed(seed + _FOLD_IN_SEED_OFFSET)
         return torch.rand((self.n_components, m), generator=gen, dtype=dtype) * 0.8 + 0.1
 
+    def _use_fused_transform(self, n_entries: int, dtype: torch.dtype,
+                             device: torch.device) -> bool:
+        """Route ``transform`` through the fused fold-in kernels?  Always
+        under ``backend="fused"``; under ``"auto"`` for float32 on a CUDA
+        device from ``_FUSED_TRANSFORM_MIN_ENTRIES`` entries; never under
+        ``"plain"``."""
+        if self.backend == "fused":
+            return True
+        return (self.backend == "auto" and device.type == "cuda" and dtype == torch.float32
+                and n_entries >= _FUSED_TRANSFORM_MIN_ENTRIES)
+
     def transform(self, X, mask=None):
         """Fold in new data: find W for ``X`` with fitted ``components_`` held
         fixed, via 50 beta-dir multiplicative updates (reference
-        ``_base.py:162-199``), seeded from ``random_state``, on ``device``."""
+        ``_base.py:162-199``), seeded from ``random_state``, on ``device``.
+
+        Large batches on the card (and any batch under ``backend="fused"``)
+        run through the fused fold-in kernels with the same seeded start, so
+        the two routes agree to the kernels' rounding."""
         check_is_fitted(self, ["components_"])
         X = check_array(X, accept_sparse="csr", dtype=np.float64)
         warn_large_sparse_densify(X, "transform")
@@ -239,6 +265,13 @@ class NBMFMM(*_BASES):
         dtype = _resolve_dtype(self.dtype)
         _resolve_precision(self.precision)
         device = _resolve_device(self.device)
+        W0t = self._fold_in_init(X.shape[0], dtype)
+        if self._use_fused_transform(X.size, dtype, device):
+            from .serving import fold_in_fused
+
+            W, _ = fold_in_fused(self.components_, X, mask, W0t, n_iter=_FOLD_IN_ITERS,
+                                 dtype=dtype, packed=self.packed, device=device)
+            return W
         Xt = torch.as_tensor(X, device=device).to(dtype)
         H = torch.tensor(np.asarray(self.components_), device=device).to(dtype)
         if mask is None:
@@ -246,8 +279,7 @@ class NBMFMM(*_BASES):
         else:
             mt = torch.as_tensor(np.asarray(mask, dtype=np.float64), device=device).to(dtype)
             Ym, Ym2 = Xt * mt, (1.0 - Xt) * mt
-        W0t = self._fold_in_init(X.shape[0], dtype).to(device)
-        W = _transform_core(H, Ym, Ym2, W0t, 1e-8, n_iter=_FOLD_IN_ITERS)
+        W = _transform_core(H, Ym, Ym2, W0t.to(device), 1e-8, n_iter=_FOLD_IN_ITERS)
         return W.cpu().numpy()
 
     def inverse_transform(self, W):

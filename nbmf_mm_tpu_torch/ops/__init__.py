@@ -1,4 +1,4 @@
-"""Sweep math, simplex projections and the bit-packed sweep kernels."""
+"""Sweep math, simplex projections and the packed and dense sweep kernels."""
 
 from .projection import project_columns_simplex_duchi, project_simplex_duchi
 from .updates import fold_in_w_update, map_objective, mm_sweep, precompute_masked_terms

@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``ops/csrc/`` with ``nvcc`` at first use and load
 them with ``ctypes``.
 
-The sources expose a plain C interface (no PyTorch headers), so one ``nvcc``
-call builds them in seconds.  The library lands in
+The sources expose a plain C interface (no PyTorch headers), so each builds
+in seconds.  One ``nvcc -c`` per ``.cu`` file runs in parallel, and one more
+call links the objects into a shared library in
 ``<checkout>/build/nbmf_mm_tpu_torch/`` under a name keyed on a hash of the
 sources and flags, so an edit rebuilds it and an unchanged tree reuses it.
 Nothing is imported or built when this module is imported.
@@ -16,15 +17,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 __all__ = ["load_library", "build_log", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nbmf_mm_tpu_torch"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills, kept in the build log
 )
 
@@ -35,6 +37,13 @@ _SIGNATURES = {
     "nbmf_hloss_terms_packed": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     # W, H, words, words2, T, k, Mp, Np, bm, n_real, eps, device, stream
     "nbmf_w_terms_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # as nbmf_hloss_terms_packed with dense Ym, Yc in place of the words
+    "nbmf_hloss_terms_dense": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    # as nbmf_w_terms_packed with dense Ym, Ym2 in place of the words
+    "nbmf_w_terms_dense": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # W, H, Ym, Yc, ll_part, ll, k, Mp, Np, bm, m_real, n_real, rows_per_split,
+    # eps, device, stream
+    "nbmf_loglik_sum_dense": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
 }
 
 
@@ -63,10 +72,53 @@ def _library_path() -> Path:
 
 
 def build_log() -> str:
-    """What ``nvcc`` printed when it built the current library (ptxas
-    resource usage per kernel), or an empty string if it was reused."""
+    """What ``nvcc`` printed when it built the current library (seconds per
+    source, ptxas resource usage per kernel), or an empty string if it was
+    reused."""
     path = _library_path().with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def _compile(out: Path) -> None:
+    """``nvcc -c`` every source at once, then link; the log keeps what ptxas
+    printed and the compile's wall time."""
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    t0 = time.perf_counter()
+    jobs = []
+    for src in cu:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        log = obj.with_suffix(".log")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        jobs.append((src, obj, log, cmd, proc))
+    report, failed = [], []
+    for src, obj, log, cmd, proc in jobs:
+        rc = proc.wait()
+        report.append(f"nvcc -c {src.name}: rc {rc}\n" + log.read_text())
+        log.unlink()
+        if rc != 0:
+            failed.append(f"{' '.join(cmd)}\n{report[-1]}")
+    report.append(f"nvcc -c of {len(jobs)} sources in parallel: "
+                  f"{time.perf_counter() - t0:.2f} s wall\n")
+    if failed:
+        for job in jobs:
+            job[1].unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    objs = [str(job[1]) for job in jobs]
+    cmd = [_nvcc(), *_ARCH, "-shared", "-o", str(tmp), *objs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        os.unlink(obj)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    out.with_suffix(".log").write_text("".join(report))
+    os.replace(tmp, out)
 
 
 @functools.cache
@@ -75,17 +127,7 @@ def load_library() -> ctypes.CDLL:
     ``restype`` set on every entry point."""
     out = _library_path()
     if not out.exists():
-        cu, _ = _sources()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        _compile(out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

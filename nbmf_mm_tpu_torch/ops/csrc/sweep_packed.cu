@@ -1,4 +1,5 @@
-// Bit-packed NBMF-MM sweep passes for NVIDIA Hopper (sm_90a).
+// Bit-packed NBMF-MM sweep passes for NVIDIA Hopper (sm_90a): the kernel
+// templates of sweep_kernels.cuh instantiated on int32 words.
 //
 // K1 nbmf_hloss_terms_packed replaces the Pallas kernel
 //    ops/pallas_sweep.py::hloss_terms_packed of the JAX package: the H-update
@@ -7,332 +8,11 @@
 // K2 nbmf_w_terms_packed replaces pallas_sweep.py::w_terms_packed: the
 //    W-update contraction T = H.P^T + (1-H).Q^T (k, Mp) with the new H.
 //
-// Notation: WH = W^T H, a = WH + eps, b = max(1 - WH, 0) + eps,
-// r = 1/(a b), p = bit ? b r : 0, and q the complement term a r.
-// Layout (kept bit-identical to pallas_sweep.py::pack_bits): word row
-// w = j*bmw + i, bit b holds data row j*bm + b*bmw + i, bmw = bm/32.
-//
-// What bounds them on an H100: at m = n = 1e4, k = 128 K1 reads 12.5 MB of
-// words and does ~8 m n k = 1.0e11 flops (K2 ~6 m n k), so both are bound by
-// arithmetic, not by device memory.  The design keeps every (m, n)
-// intermediate on chip: a block stages a (k x 32) slice of W and a (k x 32)
-// tile of H in shared memory, forms the 32 x 32 tile of WH, p and q there,
-// and folds it into per-thread fp32 register accumulators.  This first
-// version runs fp32 FMA on the CUDA cores; the tensor cores (wgmma, TF32)
-// and TMA are later work.
-//
-// Determinism: no float atomics.  Every output element and every partial is
-// written by one thread, and the cross-block sums (K1's split over m and its
-// ll partials) run in a fixed order in separate small kernels, so a launch
-// on the same inputs gives bitwise the same outputs.
-//
-// Numerics follow the TPU kernel: one IEEE reciprocal r = 1/(a b), logf,
-// two nonnegative accumulations in K2 (never the one-matmul identity
-// H (P - Q)^T + sum Q, which cancels when q ~ 1e8 near WH -> 1).  Build
-// without --use_fast_math.  K1 masks ll exactly to row < m_real and
-// col < n_real (the TPU kernel adds log(1 + eps) per pad entry instead).
+// Because the words are exactly 0/1, p = bit ? b r : 0, q the complement
+// term a r, and ll = log of one select (see sweep_kernels.cuh for the
+// design, the bounds and the numerics).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kGroups = kThreads / 32;  // warps per block
-constexpr int kTile = 32;               // columns per tile == data rows per word row
-constexpr int kPitch = kTile + 1;       // padded shared-memory row: no bank conflicts
-
-// Shared memory layout common to both kernels, in floats:
-//   Ws [kpad][32]  W at the 32 data rows of the current word row
-//   Hs [kpad][32]  H at the current 32 columns
-//   Ps, Qs [32][33] p and q of the current 32 x 32 tile (row = data row)
-// kpad = 8 * KPT >= k; rows k..kpad-1 of Ws and Hs are zero.
-__host__ __device__ inline size_t smem_bytes(int kpad) {
-    return sizeof(float) * (size_t)(2 * kpad * kTile + 2 * kTile * kPitch);
-}
-
-// Stage W[:, rows of word row w] into Ws (zero beyond k).
-__device__ inline void load_w_slice(float* Ws, const float* __restrict__ W, int k, int kpad,
-                                    int Mp, int row0, int bmw) {
-    for (int e = threadIdx.x; e < kpad * kTile; e += kThreads) {
-        const int kk = e / kTile, r = e % kTile;
-        Ws[e] = kk < k ? W[(size_t)kk * Mp + row0 + r * bmw] : 0.f;
-    }
-}
-
-// Stage H[:, c0:c0+32] into Hs (zero beyond k and beyond Np).
-__device__ inline void load_h_tile(float* Hs, const float* __restrict__ H, int k, int kpad,
-                                   int Np, int c0) {
-    for (int e = threadIdx.x; e < kpad * kTile; e += kThreads) {
-        const int kk = e / kTile, c = e % kTile;
-        Hs[e] = (kk < k && c0 + c < Np) ? H[(size_t)kk * Np + c0 + c] : 0.f;
-    }
-}
-
-// WH for the 4 data rows r = g + 8 q (q < 4) of this thread at column `lane`.
-__device__ inline void tile_wh(float wh[4], const float* Ws, const float* Hs, int k, int g,
-                               int lane) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wh[q] = 0.f;
-    for (int kk = 0; kk < k; ++kk) {
-        const float h = Hs[kk * kTile + lane];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) wh[q] = fmaf(Ws[kk * kTile + g + 8 * q], h, wh[q]);
-    }
-}
-
-// ---------------------------------------------------------------- K1
-// Grid (ceil(Np/32), nsplit).  Block (x, y) owns columns [32x, 32x+32) and
-// word rows [y*rows_per_split, ...).  Thread t = 32 g + lane holds Num/Den
-// for rows kk = g + 8 i (i < KPT) of column lane in registers.
-template <int KPT, bool CORRECTED>
-__global__ void __launch_bounds__(kThreads)
-hloss_kernel(const float* __restrict__ W, const float* __restrict__ H,
-             const int32_t* __restrict__ words, const int32_t* __restrict__ words2,
-             float* __restrict__ num_out, float* __restrict__ den_out,
-             double* __restrict__ ll_part, int k, int Mp, int Np, int bm, int m_real,
-             int n_real, int rows_per_split, float eps) {
-    extern __shared__ float smem[];
-    constexpr int kpad = 8 * KPT;
-    float* Ws = smem;
-    float* Hs = Ws + kpad * kTile;
-    float* Ps = Hs + kpad * kTile;
-    float* Qs = Ps + kTile * kPitch;
-    __shared__ double ll_warp[kGroups];
-
-    const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-    const int c0 = blockIdx.x * kTile, col = c0 + lane;
-    const bool col_in = col < Np;
-    const int bmw = bm / 32, Mw = Mp / 32;
-    const int w_begin = blockIdx.y * rows_per_split;
-    const int w_end = min(Mw, w_begin + rows_per_split);
-
-    load_h_tile(Hs, H, k, kpad, Np, c0);
-
-    float num[KPT], den[KPT];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) num[i] = den[i] = 0.f;
-    double ll = 0.0;
-
-    for (int w = w_begin; w < w_end; ++w) {
-        const int j = w / bmw, i0 = w - j * bmw;
-        const int row0 = j * bm + i0;  // data row of bit 0; bit b is row0 + b*bmw
-        __syncthreads();               // the previous tile's readers are done
-        load_w_slice(Ws, W, k, kpad, Mp, row0, bmw);
-        __syncthreads();
-
-        const uint32_t word = col_in ? (uint32_t)words[(size_t)w * Np + col] : 0u;
-        const uint32_t word2 =
-            (CORRECTED && col_in) ? (uint32_t)words2[(size_t)w * Np + col] : 0u;
-        float wh[4];
-        tile_wh(wh, Ws, Hs, k, g, lane);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int r = g + 8 * q;
-            const bool bit = (word >> r) & 1u;
-            const float a = wh[q] + eps;
-            const float b = fmaxf(1.f - wh[q], 0.f) + eps;
-            const float rr = 1.f / (a * b);
-            float p = bit ? b * rr : 0.f;
-            float qv, sel;
-            if (CORRECTED) {
-                const bool bit2 = (word2 >> r) & 1u;
-                qv = bit2 ? a * rr : 0.f;
-                sel = bit ? a : (bit2 ? b : 1.f);
-            } else {
-                qv = bit ? 0.f : a * rr;
-                sel = bit ? a : b;
-            }
-            if (!col_in) p = qv = 0.f;
-            if (row0 + r * bmw < m_real && col < n_real) ll += (double)logf(sel);
-            Ps[r * kPitch + lane] = p;
-            Qs[r * kPitch + lane] = qv;
-        }
-        __syncthreads();
-
-        for (int r = 0; r < kTile; ++r) {
-            const float p = Ps[r * kPitch + lane];
-            const float qv = Qs[r * kPitch + lane];
-#pragma unroll
-            for (int i = 0; i < KPT; ++i) {
-                const float wv = Ws[(g + 8 * i) * kTile + r];
-                num[i] = fmaf(wv, p, num[i]);
-                den[i] = fmaf(wv, qv, den[i]);
-            }
-        }
-    }
-
-    if (col_in) {
-        const size_t base = (size_t)blockIdx.y * k * Np;
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-            const int kk = g + 8 * i;
-            if (kk < k) {
-                num_out[base + (size_t)kk * Np + col] = num[i];
-                den_out[base + (size_t)kk * Np + col] = den[i];
-            }
-        }
-    }
-
-    // Block sum of ll in a fixed order: warp tree, then warp 0 over warps.
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) ll += __shfl_down_sync(0xffffffffu, ll, off);
-    if (lane == 0) ll_warp[g] = ll;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        double s = 0.0;
-        for (int i = 0; i < kGroups; ++i) s += ll_warp[i];
-        ll_part[blockIdx.y * gridDim.x + blockIdx.x] = s;
-    }
-}
-
-// out[e] = sum over s of part[s][e], s in order (K1's split over m).
-__global__ void sum_splits_kernel(const float* __restrict__ num_part,
-                                  const float* __restrict__ den_part, float* __restrict__ num,
-                                  float* __restrict__ den, int nsplit, size_t count) {
-    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= count) return;
-    float sn = 0.f, sd = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-        sn += num_part[(size_t)s * count + e];
-        sd += den_part[(size_t)s * count + e];
-    }
-    num[e] = sn;
-    den[e] = sd;
-}
-
-// ll = sum of the per-block partials, in a fixed order (one block).
-__global__ void sum_ll_kernel(const double* __restrict__ part, int count, float* __restrict__ ll) {
-    __shared__ double s[kThreads];
-    double acc = 0.0;
-    for (int i = threadIdx.x; i < count; i += kThreads) acc += part[i];
-    s[threadIdx.x] = acc;
-    __syncthreads();
-    for (int half = kThreads / 2; half > 0; half >>= 1) {
-        if (threadIdx.x < half) s[threadIdx.x] += s[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) *ll = (float)s[0];
-}
-
-// ---------------------------------------------------------------- K2
-// Grid (Mp/32): block w owns word row w, i.e. 32 data rows, and walks all
-// columns in tiles of 32.  Thread t = 32 g + lane holds T for rows
-// kk = g + 8 i of data row `lane` as two nonnegative register sums.
-template <int KPT, bool EXPLICIT2>
-__global__ void __launch_bounds__(kThreads)
-wterms_kernel(const float* __restrict__ W, const float* __restrict__ H,
-              const int32_t* __restrict__ words, const int32_t* __restrict__ words2,
-              float* __restrict__ T, int k, int Mp, int Np, int bm, int n_real, float eps) {
-    extern __shared__ float smem[];
-    constexpr int kpad = 8 * KPT;
-    float* Ws = smem;
-    float* Hs = Ws + kpad * kTile;
-    float* Ps = Hs + kpad * kTile;
-    float* Qs = Ps + kTile * kPitch;
-
-    const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-    const int w = blockIdx.x, bmw = bm / 32;
-    const int j = w / bmw;
-    const int row0 = j * bm + (w - j * bmw);
-
-    load_w_slice(Ws, W, k, kpad, Mp, row0, bmw);
-
-    float tp[KPT], tq[KPT];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) tp[i] = tq[i] = 0.f;
-
-    for (int c0 = 0; c0 < Np; c0 += kTile) {
-        __syncthreads();  // Ws staged / the previous tile's readers are done
-        load_h_tile(Hs, H, k, kpad, Np, c0);
-        __syncthreads();
-
-        const int col = c0 + lane;
-        const bool col_in = col < Np;
-        const uint32_t word = col_in ? (uint32_t)words[(size_t)w * Np + col] : 0u;
-        const uint32_t word2 =
-            (EXPLICIT2 && col_in) ? (uint32_t)words2[(size_t)w * Np + col] : 0u;
-        float wh[4];
-        tile_wh(wh, Ws, Hs, k, g, lane);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int r = g + 8 * q;
-            const bool bit = (word >> r) & 1u;
-            const bool bit2 = EXPLICIT2 ? ((word2 >> r) & 1u) : (!bit && col < n_real);
-            const float a = wh[q] + eps;
-            const float b = fmaxf(1.f - wh[q], 0.f) + eps;
-            const float rr = 1.f / (a * b);
-            Ps[r * kPitch + lane] = (col_in && bit) ? b * rr : 0.f;
-            Qs[r * kPitch + lane] = (col_in && bit2) ? a * rr : 0.f;
-        }
-        __syncthreads();
-
-        for (int c = 0; c < kTile; ++c) {
-            const float p = Ps[lane * kPitch + c];
-            const float qv = Qs[lane * kPitch + c];
-#pragma unroll
-            for (int i = 0; i < KPT; ++i) {
-                const float h = Hs[(g + 8 * i) * kTile + c];
-                tp[i] = fmaf(h, p, tp[i]);
-                tq[i] = fmaf(1.f - h, qv, tq[i]);
-            }
-        }
-    }
-
-    const int row = row0 + lane * bmw;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-        const int kk = g + 8 * i;
-        if (kk < k) T[(size_t)kk * Mp + row] = tp[i] + tq[i];
-    }
-}
-
-template <int KPT, bool CORRECTED>
-cudaError_t launch_hloss(const float* W, const float* H, const int32_t* words,
-                         const int32_t* words2, float* num, float* den, double* ll_part, int k,
-                         int Mp, int Np, int bm, int m_real, int n_real, int rows_per_split,
-                         int nsplit, float eps, cudaStream_t stream) {
-    auto kernel = hloss_kernel<KPT, CORRECTED>;
-    const size_t smem = smem_bytes(8 * KPT);
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((Np + kTile - 1) / kTile, nsplit);
-    kernel<<<grid, kThreads, smem, stream>>>(W, H, words, words2, num, den, ll_part, k, Mp, Np,
-                                             bm, m_real, n_real, rows_per_split, eps);
-    return cudaGetLastError();
-}
-
-template <int KPT, bool EXPLICIT2>
-cudaError_t launch_wterms(const float* W, const float* H, const int32_t* words,
-                          const int32_t* words2, float* T, int k, int Mp, int Np, int bm,
-                          int n_real, float eps, cudaStream_t stream) {
-    auto kernel = wterms_kernel<KPT, EXPLICIT2>;
-    const size_t smem = smem_bytes(8 * KPT);
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<Mp / 32, kThreads, smem, stream>>>(W, H, words, words2, T, k, Mp, Np, bm, n_real,
-                                                eps);
-    return cudaGetLastError();
-}
-
-// Registers per thread scale with KPT = ceil(k / 8), rounded up to a power
-// of two so a handful of instantiations covers k in [1, 256].
-#define NBMF_DISPATCH_KPT(k, FN, FLAG, ...)                       \
-    ((k) <= 8     ? FN<1, FLAG>(__VA_ARGS__)                      \
-     : (k) <= 16  ? FN<2, FLAG>(__VA_ARGS__)                      \
-     : (k) <= 32  ? FN<4, FLAG>(__VA_ARGS__)                      \
-     : (k) <= 64  ? FN<8, FLAG>(__VA_ARGS__)                      \
-     : (k) <= 128 ? FN<16, FLAG>(__VA_ARGS__)                     \
-                  : FN<32, FLAG>(__VA_ARGS__))
-
-bool geometry_ok(int k, int Mp, int Np, int bm) {
-    return k >= 1 && k <= 256 && Np >= 1 && bm >= 32 && bm % 32 == 0 && Mp >= bm &&
-           Mp % bm == 0;
-}
-
-}  // namespace
+#include "sweep_kernels.cuh"
 
 extern "C" {
 
@@ -345,36 +25,9 @@ int nbmf_hloss_terms_packed(const float* W, const float* H, const int32_t* words
                             float* den_part, double* ll_part, float* ll, int k, int Mp, int Np,
                             int bm, int m_real, int n_real, int rows_per_split, float eps,
                             int device, void* stream_ptr) {
-    if (!geometry_ok(k, Mp, Np, bm) || rows_per_split < 1) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    cudaStream_t stream = (cudaStream_t)stream_ptr;
-    const int Mw = Mp / 32;
-    const int nsplit = (Mw + rows_per_split - 1) / rows_per_split;
-    float* num_dst = nsplit > 1 ? num_part : num;
-    float* den_dst = nsplit > 1 ? den_part : den;
-    if (nsplit > 1 && (num_part == nullptr || den_part == nullptr))
-        return (int)cudaErrorInvalidValue;
-    if (words2 != nullptr)
-        err = NBMF_DISPATCH_KPT(k, launch_hloss, true, W, H, words, words2, num_dst, den_dst,
-                                ll_part, k, Mp, Np, bm, m_real, n_real, rows_per_split, nsplit,
-                                eps, stream);
-    else
-        err = NBMF_DISPATCH_KPT(k, launch_hloss, false, W, H, words, words2, num_dst, den_dst,
-                                ll_part, k, Mp, Np, bm, m_real, n_real, rows_per_split, nsplit,
-                                eps, stream);
-    if (err != cudaSuccess) return (int)err;
-    if (nsplit > 1) {
-        const size_t count = (size_t)k * Np;
-        const int blocks = (int)((count + kThreads - 1) / kThreads);
-        sum_splits_kernel<<<blocks, kThreads, 0, stream>>>(num_part, den_part, num, den, nsplit,
-                                                           count);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    const int nparts = ((Np + kTile - 1) / kTile) * nsplit;
-    sum_ll_kernel<<<1, kThreads, 0, stream>>>(ll_part, nparts, ll);
-    return (int)cudaGetLastError();
+    return run_hloss<int32_t, true>(W, H, words, words2, num, den, num_part, den_part, ll_part,
+                                    ll, k, Mp, Np, bm, m_real, n_real, rows_per_split, eps,
+                                    device, stream_ptr);
 }
 
 // T (k, Mp) from the words, the new H and, when given, words2 (else the
@@ -382,17 +35,8 @@ int nbmf_hloss_terms_packed(const float* W, const float* H, const int32_t* words
 int nbmf_w_terms_packed(const float* W, const float* H, const int32_t* words,
                         const int32_t* words2, float* T, int k, int Mp, int Np, int bm,
                         int n_real, float eps, int device, void* stream_ptr) {
-    if (!geometry_ok(k, Mp, Np, bm)) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    cudaStream_t stream = (cudaStream_t)stream_ptr;
-    if (words2 != nullptr)
-        err = NBMF_DISPATCH_KPT(k, launch_wterms, true, W, H, words, words2, T, k, Mp, Np, bm,
-                                n_real, eps, stream);
-    else
-        err = NBMF_DISPATCH_KPT(k, launch_wterms, false, W, H, words, words2, T, k, Mp, Np, bm,
-                                n_real, eps, stream);
-    return (int)err;
+    return run_wterms<int32_t>(W, H, words, words2, T, k, Mp, Np, bm, n_real, eps, device,
+                               stream_ptr);
 }
 
 const char* nbmf_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -17,6 +17,8 @@ Each kernel has a wrapper with two routes, chosen by where its tensors lie:
   ``where``) — that is how the tests exercise the fused solver loop;
 - CUDA tensors launch the hand-written kernel in ``csrc/sweep_packed.cu`` on
   the current stream, or raise.  There is no fallback between the two.
+  The launch helpers here also serve the dense wrappers of
+  :mod:`~nbmf_mm_tpu_torch.ops.dense_sweep`.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that it
 went through the kernels.  Pad handling: the data, W's pad columns and H's
@@ -171,12 +173,17 @@ def w_terms_packed_plain(W, H_new, words, words2=None, *, eps, n_real, bm):
 
 
 # ------------------------------------------------------------------ wrappers
-def _check_cuda_operands(who, W, H, words, words2, bm):
+def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False):
+    """Device, type, contiguity and shape checks before a launch: ``y``/``y2``
+    are int32 words ``(Mp//32, Np)``, or with ``dense`` f32 ``(Mp, Np)``."""
+    if W.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {W.device}")
     k, Mp = W.shape
     Np = H.shape[1]
     dev = W.device
+    y_dtype = torch.float32 if dense else torch.int32
     for name, t, dtype in (("W", W, torch.float32), ("H", H, torch.float32),
-                           ("words", words, torch.int32), ("words2", words2, torch.int32)):
+                           ("y", y, y_dtype), ("y2", y2, y_dtype)):
         if t is None:
             continue
         if t.device != dev:
@@ -190,10 +197,21 @@ def _check_cuda_operands(who, W, H, words, words2, bm):
     if not 1 <= k <= MAX_RANK:
         raise ValueError(f"{who}: the CUDA kernel takes 1 <= k <= {MAX_RANK}, got k={k}")
     _check_stripe(Mp, bm, who)
-    for name, t in (("words", words), ("words2", words2)):
-        if t is not None and tuple(t.shape) != (Mp // PACKED_WORD_BITS, Np):
-            raise ValueError(f"{who}: {name} shape {tuple(t.shape)} != {(Mp // 32, Np)}")
-    return k, Mp, Np
+    shape = (Mp, Np) if dense else (Mp // PACKED_WORD_BITS, Np)
+    for name, t in (("y", y), ("y2", y2)):
+        if t is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{who}: {name} shape {tuple(t.shape)} != {shape}")
+
+
+def _split_rows(Mw: int, Np: int, device) -> Tuple[int, int]:
+    """``(rows_per_split, nsplit)`` of the H pass: split the ``Mw`` word rows
+    across blocks until ~4 blocks per SM are in flight; the partial sums are
+    then added in a fixed order by a second kernel."""
+    col_tiles = -(-Np // 32)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    want = min(Mw, max(1, -(-4 * n_sm // col_tiles)))
+    rows_per_split = -(-Mw // want)
+    return rows_per_split, -(-Mw // rows_per_split)
 
 
 def _raise_on_error(lib, who, err):
@@ -203,6 +221,55 @@ def _raise_on_error(lib, who, err):
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=True):
+    """Allocate the outputs and scratch of an H-pass entry point (packed or
+    dense; with ``terms=False`` the ll-only one) and launch it on the
+    current stream.  Returns ``(Num, Den, ll)``, ``Num``/``Den`` None
+    without terms."""
+    from ._build import load_library
+
+    lib = load_library()
+    k, Mp = W.shape
+    Np = H.shape[1]
+    dev = W.device
+    rows_per_split, nsplit = _split_rows(Mp // PACKED_WORD_BITS, Np, dev)
+    ll = torch.empty((), dtype=torch.float32, device=dev)
+    ll_part = torch.empty(-(-Np // 32) * nsplit, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = (k, Mp, Np, bm, m_real, n_real, rows_per_split, float(eps), dev.index or 0, stream)
+    num = den = num_part = den_part = None
+    if terms:
+        num = torch.empty((k, Np), dtype=torch.float32, device=dev)
+        den = torch.empty_like(num)
+        if nsplit > 1:
+            num_part = torch.empty((nsplit, k, Np), dtype=torch.float32, device=dev)
+            den_part = torch.empty_like(num_part)
+        outs = (num.data_ptr(), den.data_ptr(), _ptr(num_part), _ptr(den_part))
+    else:
+        outs = ()
+    err = getattr(lib, entry)(W.data_ptr(), H.data_ptr(), y.data_ptr(), _ptr(y2), *outs,
+                              ll_part.data_ptr(), ll.data_ptr(), *tail)
+    _raise_on_error(lib, who, err)
+    return num, den, ll
+
+
+def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm):
+    """Allocate ``T (k, Mp)`` and launch a W-pass entry point on the current
+    stream."""
+    from ._build import load_library
+
+    lib = load_library()
+    k, Mp = W.shape
+    T = torch.empty((k, Mp), dtype=torch.float32, device=W.device)
+    stream = torch.cuda.current_stream(W.device).cuda_stream
+    err = getattr(lib, entry)(
+        W.data_ptr(), H_new.data_ptr(), y.data_ptr(), _ptr(y2), T.data_ptr(),
+        k, Mp, H_new.shape[1], bm, n_real, float(eps), W.device.index or 0, stream,
+    )
+    _raise_on_error(lib, who, err)
+    return T
 
 
 def hloss_terms_packed(
@@ -228,39 +295,11 @@ def hloss_terms_packed(
         return hloss_terms_packed_plain(
             W, H, words, words2, eps=eps, m_real=m_real, n_real=n_real, bm=bm
         )
-    if W.device.type != "cuda":
-        raise ValueError(f"hloss_terms_packed: unsupported device {W.device}")
-    k, Mp, Np = _check_cuda_operands("hloss_terms_packed", W, H, words, words2, bm)
-    from ._build import load_library
-
-    lib = load_library()
-    Mw = Mp // PACKED_WORD_BITS
-    col_tiles = -(-Np // 32)
-    # Split m across blocks until ~4 blocks per SM are in flight; the
-    # partial sums are then added in a fixed order by a second kernel.
-    n_sm = torch.cuda.get_device_properties(W.device).multi_processor_count
-    want = min(Mw, max(1, -(-4 * n_sm // col_tiles)))
-    rows_per_split = -(-Mw // want)
-    nsplit = -(-Mw // rows_per_split)
-    num = torch.empty((k, Np), dtype=torch.float32, device=W.device)
-    den = torch.empty_like(num)
-    ll = torch.empty((), dtype=torch.float32, device=W.device)
-    ll_part = torch.empty(col_tiles * nsplit, dtype=torch.float64, device=W.device)
-    num_part = den_part = None
-    if nsplit > 1:
-        num_part = torch.empty((nsplit, k, Np), dtype=torch.float32, device=W.device)
-        den_part = torch.empty_like(num_part)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib.nbmf_hloss_terms_packed(
-        W.data_ptr(), H.data_ptr(), words.data_ptr(), _ptr(words2),
-        num.data_ptr(), den.data_ptr(), _ptr(num_part), _ptr(den_part),
-        ll_part.data_ptr(), ll.data_ptr(),
-        k, Mp, Np, bm, m_real, n_real, rows_per_split, float(eps),
-        W.device.index or 0, stream,
-    )
-    _raise_on_error(lib, "hloss_terms_packed", err)
+    _check_cuda_operands("hloss_terms_packed", W, H, words, words2, bm)
+    out = _launch_hloss("nbmf_hloss_terms_packed", "hloss_terms_packed", W, H, words, words2,
+                        eps=eps, m_real=m_real, n_real=n_real, bm=bm)
     LAUNCHES["hloss_terms_packed"] += 1
-    return num, den, ll
+    return out
 
 
 def w_terms_packed(
@@ -281,18 +320,8 @@ def w_terms_packed(
     """
     if W.device.type == "cpu":
         return w_terms_packed_plain(W, H_new, words, words2, eps=eps, n_real=n_real, bm=bm)
-    if W.device.type != "cuda":
-        raise ValueError(f"w_terms_packed: unsupported device {W.device}")
-    k, Mp, Np = _check_cuda_operands("w_terms_packed", W, H_new, words, words2, bm)
-    from ._build import load_library
-
-    lib = load_library()
-    T = torch.empty((k, Mp), dtype=torch.float32, device=W.device)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
-    err = lib.nbmf_w_terms_packed(
-        W.data_ptr(), H_new.data_ptr(), words.data_ptr(), _ptr(words2), T.data_ptr(),
-        k, Mp, Np, bm, n_real, float(eps), W.device.index or 0, stream,
-    )
-    _raise_on_error(lib, "w_terms_packed", err)
+    _check_cuda_operands("w_terms_packed", W, H_new, words, words2, bm)
+    T = _launch_wterms("nbmf_w_terms_packed", "w_terms_packed", W, H_new, words, words2,
+                       eps=eps, n_real=n_real, bm=bm)
     LAUNCHES["w_terms_packed"] += 1
     return T

@@ -6,10 +6,13 @@ Two loops solve one initialization, both on the caller's device:
 - :func:`_solve_core` — the plain loop (counterpart of the JAX ``"jnp"``
   route): :func:`~nbmf_mm_tpu_torch.ops.updates.mm_sweep` and
   :func:`~nbmf_mm_tpu_torch.ops.updates.map_objective` on dense operands;
-- :func:`_solve_core_fused` — the shifted-loss loop over bit-packed words
-  (counterpart of ``_solve_core_pallas`` with ``packed=True``): per sweep
-  one K1 pass (H-update terms and the previous sweep's loss) and one K2 pass
-  (W-update terms), :mod:`nbmf_mm_tpu_torch.ops.cuda_sweep`.
+- :func:`_solve_core_fused` — the shifted-loss kernel loop (counterpart of
+  ``_solve_core_pallas``): per sweep one H pass (H-update terms and the
+  previous sweep's loss) and one W pass (W-update terms), over bit-packed
+  words (:mod:`~nbmf_mm_tpu_torch.ops.cuda_sweep`) for exactly-binary
+  operands or over dense f32 operands
+  (:mod:`~nbmf_mm_tpu_torch.ops.dense_sweep`) for ``[0, 1]``-valued data
+  and weighted masks; ``packed`` chooses, as in the JAX package.
 
 Both read the stopping flag back to the host once per sweep and leave the
 loop when it is set; for one initialization that gives the results of the
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_sweep as cs
+from ..ops import dense_sweep as ds
 from ..ops.projection import project_columns_simplex_duchi
 from ..ops.updates import (
     clip_upper_interior,
@@ -94,33 +98,35 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device, binary: bool) -> str:
+def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device, binary: bool,
+                     packed: Optional[bool] = None) -> str:
     """Pick the solver loop: ``"fused"`` or ``"plain"``.
 
-    ``"auto"`` takes the fused kernel loop for float32 on a CUDA device with
-    exactly-binary operands, and the plain loop for float64 or on the CPU.
-    Non-binary float32 data on CUDA raises: its dense kernels are not
-    ported, and ``backend="plain"`` runs it when asked for.
+    ``"auto"`` takes the fused kernel loop for float32 on a CUDA device and
+    the plain loop for float64 or on the CPU.  The fused loop streams packed
+    words when the operands are exactly binary (``binary``) and
+    ``packed`` is not False, dense operands otherwise.  ``packed=True``
+    demands the packed words: it raises for non-binary operands and for the
+    plain loop, as the JAX package's ``solve`` does.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-    if backend == "plain":
-        return "plain"
-    if backend == "fused":
+    if packed not in (None, False, True):
+        raise ValueError(f"packed must be None, False or True, got {packed!r}")
+    if backend == "fused" and device.type == "cuda" and dtype != torch.float32:
+        raise ValueError("backend='fused' on a CUDA device requires dtype=float32")
+    if backend == "fused" or (backend == "auto" and dtype == torch.float32
+                              and device.type == "cuda"):
+        route = "fused"
+    else:
+        route = "plain"
+    if packed is True:
+        if route == "plain":
+            raise ValueError("packed=True requires the fused loop (backend='fused', or 'auto' "
+                             "resolving to it: float32 on a CUDA device)")
         if not binary:
-            raise ValueError("backend='fused' requires exactly binary data (and mask)")
-        if device.type == "cuda" and dtype != torch.float32:
-            raise ValueError("backend='fused' on a CUDA device requires dtype=float32")
-        return "fused"
-    if dtype == torch.float64 or device.type != "cuda":
-        return "plain"
-    if not binary:
-        raise _not_ported(
-            "non-binary [0, 1] data on CUDA under backend='auto' "
-            "(pass backend='plain' to run the plain loop)",
-            "dense kernels K4-K8",
-        )
-    return "fused"
+            raise ValueError("packed=True requires exactly binary data (and mask)")
+    return route
 
 
 def _exactly_binary(A: Optional[torch.Tensor]) -> bool:
@@ -168,26 +174,37 @@ def _solve_core(Ym, Ym2, Yc, W0, H0, *, alpha, beta, tol, eps, n_obs, n_real,
     return W, H, losses, it, done
 
 
-def _solve_core_fused(words, words2_h, words2_w, W0p, H0p, *, alpha, beta, tol, eps, n_obs,
-                      m_real: int, n_real: int, bm: int, max_iter: int, projection: str,
+def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, *, packed: bool, alpha, beta, tol, eps,
+                      n_obs, m_real: int, n_real: int, bm: int, max_iter: int, projection: str,
                       verbose: int):
-    """Shifted-loss MM loop over packed words (``_solve_core_pallas``).
+    """Shifted-loss MM loop of the H and W kernels (``_solve_core_pallas``).
 
     The loss the reference reports after sweep ``t`` is evaluated on the same
     ``W.T @ H`` that the next sweep's H pass forms, so both come out of one
-    K1 call: the body at counter ``it`` records the loss of sweep ``it-1``
-    and makes the stopping decision the reference made before sweep ``it``.
-    One more K1 call after the loop fills the last entry when ``max_iter``
-    runs out.  ``words2_h`` is K1's second word array (corrected mode only),
-    ``words2_w`` K2's (both masked modes).  Operands are padded to
-    ``(Mp, Np)``; results come back padded.
+    H-pass call: the body at counter ``it`` records the loss of sweep
+    ``it-1`` and makes the stopping decision the reference made before sweep
+    ``it``.  When ``max_iter`` runs out, one more pass fills the last entry:
+    the packed H pass, or ``loglik_sum`` on dense operands, as the JAX tiled
+    route does (its ``ll`` is the dense H pass's, bitwise).
+
+    ``packed`` selects the operand set: int32 words (``Y1`` packs ``Ym``)
+    or dense f32 (``Y1`` is ``Ym``).  ``Y2_h`` is the H pass's second
+    operand (corrected mode's ``Yc``, else None), ``Y2_w`` the W pass's
+    (``Ym2`` in both masked modes, else None); in corrected mode they are one
+    buffer.  Operands are padded to ``(Mp, Np)``; results come back padded.
     """
     dtype, device = W0p.dtype, W0p.device
     upper = clip_upper_interior(eps, dtype)
+    h_pass = cs.hloss_terms_packed if packed else ds.hloss_terms
+    w_pass = cs.w_terms_packed if packed else ds.w_terms
 
     def hloss(W, H):
-        return cs.hloss_terms_packed(W, H, words, words2_h, eps=eps, m_real=m_real,
-                                     n_real=n_real, bm=bm)
+        return h_pass(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm)
+
+    def final_ll(W, H):
+        if packed:
+            return hloss(W, H)[2]
+        return ds.loglik_sum(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm)
 
     def objective_from_ll(ll, H):
         H_real = H[:, :n_real]
@@ -199,7 +216,7 @@ def _solve_core_fused(words, words2_h, words2_w, W0p, H0p, *, alpha, beta, tol, 
         num = H * Num + (alpha - 1.0)
         den = (1.0 - H) * Den + (beta - 1.0)
         H_new = cs.apply_col_validity(torch.clamp(num / (num + den + eps), eps, upper), n_real)
-        T = cs.w_terms_packed(W, H_new, words, words2_w, eps=eps, n_real=n_real, bm=bm)
+        T = w_pass(W, H_new, Y1, Y2_w, eps=eps, n_real=n_real, bm=bm)
         W_raw = W * T
         if projection == "normalize":
             W_new = W_raw / n_real
@@ -230,8 +247,7 @@ def _solve_core_fused(words, words2_h, words2_w, W0p, H0p, *, alpha, beta, tol, 
 
     if not done:
         # max_iter ran out: the last sweep's loss was never recorded.
-        _, _, ll_fin = hloss(W, H)
-        loss_fin = objective_from_ll(ll_fin, H)
+        loss_fin = objective_from_ll(final_ll(W, H), H)
         losses[max(it - 1, 0)] = loss_fin
         done = it >= 2 and _check_converged(prev, loss_fin, tol)
     return W, H, losses, it, done
@@ -296,6 +312,7 @@ def solve(
     precision=None,
     mesh=None,
     backend: str = "auto",
+    packed: Optional[bool] = None,
     return_all: bool = False,
     device_results: bool = False,
     device="cuda",
@@ -316,9 +333,14 @@ def solve(
       ``"highest"`` (IEEE fp32 products, TF32 off);
     - ``device``: an explicit ``torch.device`` (default ``"cuda"``, which
       raises on a machine without a GPU; nothing moves to the CPU unasked);
-    - ``backend``: ``"auto"``, ``"fused"`` (the packed kernel loop; CPU
-      tensors go through the kernels' plain versions) or ``"plain"`` (dense
-      ``mm_sweep`` loop), see :func:`_resolve_backend`.
+    - ``backend``: ``"auto"``, ``"fused"`` (the kernel loop; CPU tensors go
+      through the kernels' plain versions) or ``"plain"`` (dense
+      ``mm_sweep`` loop), see :func:`_resolve_backend`;
+    - ``packed``: ``None`` streams exactly-binary operands (data, and mask
+      if given) as packed words and all others dense; ``False`` streams
+      dense; ``True`` requires binary operands and the fused loop, and
+      raises otherwise.  Packed and dense results are bitwise equal.
+      ``extras["packed"]`` records the choice.
 
     ``n_init > 1``, ``return_all``, ``mesh``, ``device_results``,
     ``PackedMatrix``/``scipy.sparse`` input, ``dtype="bfloat16"`` and
@@ -401,31 +423,36 @@ def solve(
         return SolverResult(W=W_final, H=H_final, losses=[], time_elapsed=time.time() - t_start,
                             n_iter=0, converged=False, seed=seed)
 
-    if backend == "plain":
-        route = "plain"
+    # The operands the kernels stream (the JAX package's driver.py:957-977):
+    # Ym = Y or Y*mask, Ym2 = (1-Y)*mask when masked; corrected mode's Yc is
+    # Ym2 itself.  Packing needs them exactly 0/1 after masking, so values at
+    # unobserved entries do not matter.
+    if mask is None:
+        Ym, Ym2 = Y, None
     else:
-        # The operands the packed loop streams must be exactly 0/1: Ym and
-        # Ym2 after masking, so values at unobserved entries do not matter.
-        if mask is None:
-            Ym, Ym2 = Y, None
-        else:
-            Ym, Ym2 = Y * mask, (1.0 - Y) * mask
-        route = _resolve_backend(backend, dtype, device,
-                                 _exactly_binary(Ym) and _exactly_binary(Ym2))
+        Ym, Ym2 = Y * mask, (1.0 - Y) * mask
+    binary = (packed is not False and backend != "plain"
+              and _exactly_binary(Ym) and _exactly_binary(Ym2))
+    route = _resolve_backend(backend, dtype, device, binary, packed)
+    use_packed = route == "fused" and binary
 
     hypers = dict(alpha=alpha, beta=beta, tol=tol, eps=eps, n_obs=n_obs,
                   max_iter=max_iter, projection=projection, verbose=verbose)
     if route == "fused":
         bm, Mp, Np = cs.plan_packing(m, n)
-        words = cs.pack_bits(_pad(Ym, Mp, Np), bm)
-        words2 = None if Ym2 is None else cs.pack_bits(_pad(Ym2, Mp, Np), bm)
+        stage = (lambda A: cs.pack_bits(_pad(A, Mp, Np), bm)) if use_packed else (
+            lambda A: _pad(A, Mp, Np))
+        Y1 = stage(Ym)
+        Y2 = None if Ym2 is None else stage(Ym2)
         del Ym, Ym2
         W, H, losses, n_iter, done = _solve_core_fused(
-            words, words2 if mask_mode == "corrected" else None, words2,
-            _pad(W0, k, Mp), _pad(H0, k, Np), m_real=m, n_real=n, bm=bm, **hypers,
+            Y1, Y2 if mask_mode == "corrected" else None, Y2,
+            _pad(W0, k, Mp), _pad(H0, k, Np), packed=use_packed, m_real=m, n_real=n, bm=bm,
+            **hypers,
         )
         W, H = W[:, :m], H[:, :n]
     else:
+        del Ym, Ym2
         Ym, Ym2, Yc = precompute_masked_terms(Y, mask, mask_mode)
         W, H, losses, n_iter, done = _solve_core(Ym, Ym2, Yc, W0, H0, n_real=n, **hypers)
 
@@ -444,7 +471,7 @@ def solve(
         n_iter=n_iter,
         converged=done,
         seed=seed,
-        extras={"backend": route},
+        extras={"backend": route, "packed": use_packed},
     )
 
 

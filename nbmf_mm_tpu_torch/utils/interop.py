@@ -20,7 +20,7 @@ __all__ = ["from_reference"]
 # Constructor arguments that carry over from a fitted JAX estimator.
 _HYPERPARAMETERS = (
     "n_components", "alpha", "beta", "max_iter", "tol", "random_state",
-    "verbose", "orientation", "projection", "mask_mode",
+    "verbose", "orientation", "projection", "mask_mode", "packed",
 )
 
 

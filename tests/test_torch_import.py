@@ -36,7 +36,8 @@ def _require_no_card():
 def test_import_leaves_jax_out():
     code = (
         "import sys; sys.path.insert(0, %r); import nbmf_mm_tpu_torch, "
-        "nbmf_mm_tpu_torch.ops.cuda_sweep, nbmf_mm_tpu_torch.ops._build, "
+        "nbmf_mm_tpu_torch.ops.cuda_sweep, nbmf_mm_tpu_torch.ops.dense_sweep, "
+        "nbmf_mm_tpu_torch.ops._build, nbmf_mm_tpu_torch.models.serving, "
         "nbmf_mm_tpu_torch.utils.interop; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'nbmf_mm_tpu' or m.startswith('nbmf_mm_tpu.')]; "
@@ -50,7 +51,8 @@ def test_import_leaves_jax_out():
 
 
 def test_public_surface():
-    for name in ("NBMF", "NBMFMM", "solve", "nbmf_mm_solver", "SolverResult", "__version__"):
+    for name in ("NBMF", "NBMFMM", "solve", "nbmf_mm_solver", "SolverResult", "FoldInServer",
+                 "fold_in_fused", "__version__"):
         assert hasattr(nbt, name)
     assert nbt.NBMF is nbt.NBMFMM
     assert isinstance(nbt.__version__, str)
@@ -84,6 +86,7 @@ def test_fused_on_cpu_uses_plain_versions():
         ("plain", torch.float32, CUDA, False, "plain"),
         ("fused", torch.float32, CUDA, True, "fused"),
         ("fused", torch.float64, CPU, True, "fused"),
+        ("fused", torch.float32, CPU, False, "fused"),
     ],
 )
 def test_resolve_backend(backend, dtype, device, binary, expected):
@@ -91,14 +94,13 @@ def test_resolve_backend(backend, dtype, device, binary, expected):
 
 
 def test_resolve_backend_nonbinary_cuda_auto_not_ported():
-    with pytest.raises(NotImplementedError, match="dense kernels K4-K8"):
-        _resolve_backend("auto", torch.float32, CUDA, False)
+    # Non-binary float32 data on CUDA takes the fused loop over dense operands.
+    assert _resolve_backend("auto", torch.float32, CUDA, False) == "fused"
 
 
 @pytest.mark.parametrize(
     "backend, dtype, device, binary",
     [
-        ("fused", torch.float32, CPU, False),
         ("fused", torch.float64, CUDA, True),
         ("jnp", torch.float32, CPU, True),
     ],
