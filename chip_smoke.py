@@ -19,20 +19,31 @@ set to 0 just before and read just after:
 
 It also checks packed against dense through ``solve``, runs masked and
 dir-beta fits and a fold-in on the lastfm matrix, and times the kernels, the
-two fused loops and the serving requests.  Each phase prints one line or
-more; any failure raises and the script exits non-zero.  The last line is a
-JSON object with ``"ok": true`` and the device; the line before it lists the
-kernels.
+two fused loops and the serving requests.
+
+Phase 7 is the measurement path (``nbmf_mm_tpu_torch/tools/``): ``h_terms``
+and every variant of the ten probe kernels against their plain versions at
+the tools' correctness shape (512 x 640, K=16) and their headline size
+(10240^2, K=128), the bitwise equalities (``h_terms`` and ``hloss_terms``;
+``hloss_ngrid`` packed and dense; ``hloss_packed`` and ``hloss_packed2``),
+a timing line per probe, then every script of the package through its entry
+point with the launch counters zeroed before and read after.
+
+Each phase prints one line or more; any failure raises and the script exits
+non-zero.  The last line is a JSON object with ``"ok": true`` and the
+device; the line before it lists the kernels.
 
 Imports torch, numpy and nbmf_mm_tpu_torch only.  Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -47,23 +58,45 @@ SERVE_BUCKETS = (64, 256, 1024, 4096, 8192)
 LASTFM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "lastfm.npz")
 EPS = 1e-8
 # Kernel against plain: Num/Den/T within 1e-5 of max |plain| (fp32 sums in
-# another order), ll within 1e-6 relative (both add fp32 logs in fp64).
+# another order); ll and the probes' scalar sums within 1e-6 of sum |x|
+# (both add in fp64).
 TOL_TERMS = 1e-5
 TOL_LL = 1e-6
 # Fold-in W from the kernels against the plain fold-in's after 50 iterations.
 TOL_FOLD_IN = 1e-4
 # The JAX reference package is named as the port without its "_torch".
-REFERENCE_KERNELS = "nbmf_mm_tpu_torch".removesuffix("_torch") + "/ops/pallas_sweep.py"
-KERNELS = {
-    # name: (source, line of the TPU kernel it replaces); the dense H and W
-    # kernels also replace the stripe forms hloss_terms_stripe (:546) and
-    # w_terms_stripe (:650).
-    "hloss_terms_packed": ("sweep_packed.cu", 843),
-    "w_terms_packed": ("sweep_packed.cu", 947),
-    "hloss_terms": ("sweep_dense.cu", 212),
-    "w_terms": ("sweep_dense.cu", 333),
-    "loglik_sum": ("sweep_dense.cu", 444),
+SWEEP = "nbmf_mm_tpu_torch".removesuffix("_torch") + "/ops/pallas_sweep.py"
+# name: (source, file:line of the TPU kernel it replaces).  The kernels of
+# the three main paths; the dense H and W kernels also replace the stripe
+# forms hloss_terms_stripe (:546) and w_terms_stripe (:650).
+PATH_KERNELS = {
+    "hloss_terms_packed": ("sweep_packed.cu", f"{SWEEP}:843"),
+    "w_terms_packed": ("sweep_packed.cu", f"{SWEEP}:947"),
+    "hloss_terms": ("sweep_dense.cu", f"{SWEEP}:212"),
+    "w_terms": ("sweep_dense.cu", f"{SWEEP}:333"),
+    "loglik_sum": ("sweep_dense.cu", f"{SWEEP}:444"),
 }
+# The kernels that only the measurement path (nbmf_mm_tpu_torch/tools/)
+# runs: h_terms and the probes of the repository's tools/ scripts.
+MEASUREMENT_KERNELS = {
+    "h_terms": ("sweep_dense.cu", f"{SWEEP}:122"),
+    "make_kernel": ("probes.cu", "tools/bench_diag.py:38"),
+    "hloss_packed": ("probes.cu", "tools/bench_packed.py:65"),
+    "w_packed": ("probes.cu", "tools/bench_packed.py:135"),
+    "hloss_packed2": ("probes.cu", "tools/bench_packed2.py:50"),
+    "w_packed2": ("probes.cu", "tools/bench_packed2.py:118"),
+    "mxu_only": ("probes.cu", "tools/bench_packed2.py:168"),
+    "mxu_probe": ("probes.cu", "tools/bench_packed3.py:37"),
+    "hloss_ngrid": ("probes.cu", "tools/bench_packed3.py:110"),
+    "stream_kernel": ("probes.cu", "tools/bench_stream.py:26"),
+    "frag_kernel": ("probes.cu", "tools/bench_vpu.py:32"),
+}
+KERNELS = {**PATH_KERNELS, **MEASUREMENT_KERNELS}
+# The measurement path's scripts, driven through their entry points.
+TOOLS = ("bench_kernels", "bench_true", "bench_packed", "bench_packed2", "bench_packed3",
+         "bench_diag", "bench_stream", "bench_vpu")
+# Probe shapes: the tools' correctness shape and their headline size.
+PROBE_SIZES = ((512, 640, 16), (10_240, 10_240, 128))
 CSRC = "nbmf_mm_tpu_torch/ops/csrc/"
 MODES = ("unmasked", "parity", "corrected")
 
@@ -96,14 +129,14 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def zero_counts(cs, ds) -> None:
-    for counts in (cs.LAUNCHES, ds.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+def zero_counts(*modules) -> None:
+    for module in modules:
+        for name in module.LAUNCHES:
+            module.LAUNCHES[name] = 0
 
 
-def read_counts(cs, ds) -> dict:
-    return {**cs.LAUNCHES, **ds.LAUNCHES}
+def read_counts(*modules) -> dict:
+    return {name: n for module in modules for name, n in module.LAUNCHES.items()}
 
 
 def headline_matrix() -> np.ndarray:
@@ -504,6 +537,147 @@ def serving_ms(server, plain, requests, weighted, card):
     return out
 
 
+def probe_cases(m, n, k, cs, ds, pr):
+    """Every probe variant and h_terms on the tools' draw at (m, n, k), as
+    (kernel, label, kernel call, plain call, FLOPs by the tool's
+    CostEstimate or None, bytes of the one operand read or None, the scale
+    of a scalar output or None for |plain|), and the data."""
+    from nbmf_mm_tpu_torch.tools.bench_stream import configs
+    from nbmf_mm_tpu_torch.tools.bench_true import random_problem
+    from nbmf_mm_tpu_torch.tools.bench_vpu import RUNS
+
+    rng = np.random.default_rng(0)
+    Y, W, H = random_problem(rng, m, n, k, DEV)
+    d = dict(Y=Y, W=W, H=H, Yc=torch.tensor(rng.random((m, n)), dtype=torch.float32,
+                                             device=DEV))
+    Yp, Ypg, Yb = cs.pack_bits(Y, 256), cs.pack_bits(Y, m), Y.to(torch.bfloat16)
+    small = m < 1024
+    block, block_n = (128, 128) if small else (512, 256)  # make_kernel's; hloss_ngrid's
+    mnk = m * n * k
+    cases = []
+    add = lambda name, label, fn, plain, flops=None, nbytes=None, scale=None: cases.append(
+        (name, label, fn, plain, flops, nbytes, scale))
+    for Yc, label in ((None, "Yc=None"), (d["Yc"], "Yc explicit")):
+        add("h_terms", label, partial(ds.h_terms, W, H, Y, Yc, bm=256),
+            partial(ds.h_terms_plain, W, H, Y, Yc, eps=EPS), 6 * mnk)
+    for kind, prec in (("hbm_only", None), ("vpu_only", None), ("mxu_only", "DEFAULT"),
+                       ("mxu_only", "HIGHEST")):
+        fn = pr.make_kernel(kind, k, m, n, block, block, prec)
+        plain = pr.make_kernel_plain(kind, k, m, n, block, block, prec)
+        add("make_kernel", f"{kind} {prec or ''}".strip(), partial(fn, W, H, Y),
+            partial(plain, W, H, Y), nbytes=4 * m * n if prec is None else None)
+    for mxu, label in ((None, "f32"), (torch.bfloat16, "bf16")):
+        for name, flops, extra in (("hloss_packed", 8, {}), ("w_packed", 4, {"n_real": n}),
+                                   ("hloss_packed2", 8, {}), ("w_packed2", 4, {"n_real": n})):
+            add(name, label, partial(getattr(pr, name), W, H, Yp, mxu_dtype=mxu, **extra),
+                partial(getattr(pr, name + "_plain"), W, H, Yp, mxu_dtype=mxu, **extra),
+                flops * mnk)
+        for n_mm in (3, 2):
+            add("mxu_only", f"n_mm={n_mm} {label}", partial(pr.mxu_only, W, H, n_mm=n_mm,
+                                                           mxu_dtype=mxu),
+                partial(pr.mxu_only_plain, W, H, n_mm=n_mm, mxu_dtype=mxu), 2 * n_mm * mnk)
+        for variant in ("chain3_acc", "chain3_tile"):
+            add("mxu_probe", f"{variant} {label}",
+                partial(pr.mxu_probe, W, H, variant=variant, mxu_dtype=mxu),
+                partial(pr.mxu_probe_plain, W, H, variant=variant, mxu_dtype=mxu), 6 * mnk)
+        for packed, data in ((False, Y), (True, Ypg)):
+            kw = dict(block_n=block_n, packed=packed, mxu_dtype=mxu)
+            add("hloss_ngrid", f"{'packed' if packed else 'dense'} {label}",
+                partial(pr.hloss_ngrid, W, H, data, **kw),
+                partial(pr.hloss_ngrid_plain, W, H, data, **kw), 8 * mnk)
+    stream = ([(256, n, "f32"), (128, 128, "f32"), (256, n, "bf16")] if small
+              else configs(n))
+    for bm, bn, dt in stream:
+        X = Y if dt == "f32" else Yb
+        add("stream_kernel", f"tile ({bm},{bn}) {dt}",
+            partial(pr.stream_kernel(m, n, bm, bn, dt), X), partial(pr.stream_kernel_plain, X),
+            nbytes=X.numel() * X.element_size())
+    for frag, packed, label in RUNS:
+        X = Yp if packed else Y
+        # Words add as signed int32 values: hold the sum to sum |x|.
+        scale = X.double().abs().sum() if frag == "stream_sum" and packed else None
+        add("frag_kernel", label, partial(pr.frag_kernel, X, frag=frag, packed=packed),
+            partial(pr.frag_kernel_plain, X, frag=frag, packed=packed),
+            nbytes=X.numel() * X.element_size(), scale=scale)
+    return cases, d
+
+
+def check_probes(m, n, k, card, cs, ds, pr, errors, *, timed):
+    """Each probe variant and h_terms against its plain version at
+    (m, n, k), launched twice for bitwise repeatability, then the bitwise
+    equalities the port promises; with ``timed``, ms/call of kernel and plain.
+    Returns {kernel: (ms, plain_ms)} of each kernel's first variant."""
+    cases, d = probe_cases(m, n, k, cs, ds, pr)
+    outs = {}
+    for name, label, fn, plain, _, _, scale in cases:
+        got, again = as_tuple(fn()), as_tuple(fn())
+        torch.cuda.synchronize()
+        want = as_tuple(plain())
+        worst_terms = worst_sum = 0.0
+        for g, w in zip(got, want):
+            if w.numel() == 1:
+                worst_sum = max(worst_sum, abs(float(g) - float(w))
+                                / (float(scale) if scale is not None else abs(float(w))))
+            else:
+                worst_terms = max(worst_terms, rel(g, w))
+            errors[name] = max(errors[name], abs_err(g, w))
+        repeat = all(map(torch.equal, got, again))
+        print(f"probe {name} {label} at {m}x{n} k={k}: rel err terms {worst_terms:.3e} (bound "
+              f"{TOL_TERMS:g} of max|plain|), sums {worst_sum:.3e} (bound {TOL_LL:g} of "
+              f"sum|x|); bitwise repeat {repeat} [{card}]", flush=True)
+        check(worst_terms <= TOL_TERMS and worst_sum <= TOL_LL,
+              f"probe {name} {label}: kernel disagrees with plain")
+        check(repeat, f"probe {name} {label}: outputs differ between two launches")
+        outs[(name, label)] = got
+
+    W, H, Y = d["W"], d["H"], d["Y"]
+    equal = lambda a, b, count=None: all(map(torch.equal, a[:count], b[:count]))
+    same = {"h_terms == hloss_terms Num/Den": all(
+        equal(outs[("h_terms", label)],
+              ds.hloss_terms(W, H, Y, Yc, eps=EPS, m_real=m, n_real=n, bm=256), 2)
+        for Yc, label in ((None, "Yc=None"), (d["Yc"], "Yc explicit")))}
+    for label in ("f32", "bf16"):
+        same[f"hloss_ngrid packed == dense {label}"] = equal(
+            outs[("hloss_ngrid", f"packed {label}")], outs[("hloss_ngrid", f"dense {label}")])
+        same[f"hloss_packed == hloss_packed2 Num/Den {label}"] = equal(
+            outs[("hloss_packed", label)], outs[("hloss_packed2", label)], 2)
+    print(f"probes bitwise at {m}x{n} k={k}: {same} [{card}]", flush=True)
+    check(all(same.values()), f"a bitwise equality of the probes failed: {same}")
+
+    times = {}
+    for name, label, fn, plain, flops, nbytes, _ in (cases if timed else ()):
+        ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+        times.setdefault(name, (ms, plain_ms))
+        rate = f", {flops / ms / 1e9:.2f} TFLOP/s by the tool's count" if flops else ""
+        rate += f", {nbytes / ms / 1e6:.1f} GB/s" if nbytes else ""
+        print(f"timing probe {name} {label} at {m}x{n} k={k}: kernel {ms:.4f} ms/call, plain "
+              f"{plain_ms:.4f} ms/call{rate} [{card}]", flush=True)
+    return times
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def measurement_path(card, cs, ds, pr) -> dict:
+    """The measurement path: each script of nbmf_mm_tpu_torch/tools/ through
+    its entry point at its headline size, one slope per timing (--reps 1),
+    with the launch counters set to 0 before and read after."""
+    zero_counts(cs, ds, pr)
+    t0 = time.perf_counter()
+    for name in TOOLS:
+        print(f"measurement path: python -m nbmf_mm_tpu_torch.tools.{name} --reps 1 [{card}]",
+              flush=True)
+        importlib.import_module(f"nbmf_mm_tpu_torch.tools.{name}").main(["--reps", "1"])
+    torch.cuda.synchronize()
+    launches = read_counts(cs, ds, pr)
+    print(f"measurement path: {time.perf_counter() - t0:.1f} s, launches {launches} [{card}]",
+          flush=True)
+    for name in (*MEASUREMENT_KERNELS, "hloss_terms", "w_terms"):
+        check(launches[name] > 0, f"{name} was never launched on the measurement path")
+    return {name: launches[name] for name in MEASUREMENT_KERNELS}
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no CUDA card")
@@ -524,6 +698,7 @@ def main() -> None:
     from nbmf_mm_tpu_torch.ops import _build
     from nbmf_mm_tpu_torch.ops import cuda_sweep as cs
     from nbmf_mm_tpu_torch.ops import dense_sweep as ds
+    from nbmf_mm_tpu_torch.ops import probes as pr
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -559,7 +734,7 @@ def main() -> None:
     server, plain_server, requests, weighted, serving_counts = serving_path(
         FoldInServer, model, card, cs, ds)
     launches = {name: binary_counts[name] + dense_counts[name] + serving_counts[name]
-                for name in KERNELS}
+                for name in PATH_KERNELS}
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on the main paths")
 
@@ -586,13 +761,21 @@ def main() -> None:
     loop_ms_per_sweep("binary", X, HEADLINE["k"], True, card, cs)
     loop_ms_per_sweep("dense", P, HEADLINE["k"], False, card, cs)
     serving_ms(server, plain_server, requests, weighted, card)
+
+    # ---------------------------------------------- 7. measurement path
+    t7 = time.perf_counter()
+    for m, n, k in PROBE_SIZES:
+        times.update(check_probes(m, n, k, card, cs, ds, pr, errors,
+                                  timed=(m, n, k) == PROBE_SIZES[-1]))
+    launches.update(measurement_path(card, cs, ds, pr))
+    print(f"measurement path: {time.perf_counter() - t7:.1f} s [{card}]", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
     kernels = [
-        {"name": name, "route": "cuda", "source": CSRC + source,
-         "replaces": f"{REFERENCE_KERNELS}:{line}", "launches": launches[name],
-         "max_abs_err": errors[name], "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (source, line) in KERNELS.items()
+        {"name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": errors[name], "ms": times[name][0],
+         "plain_ms": times[name][1]}
+        for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

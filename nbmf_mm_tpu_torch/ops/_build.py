@@ -44,7 +44,20 @@ _SIGNATURES = {
     # W, H, Ym, Yc, ll_part, ll, k, Mp, Np, bm, m_real, n_real, rows_per_split,
     # eps, device, stream
     "nbmf_loglik_sum_dense": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # as nbmf_hloss_terms_dense (ll_part, ll, m_real, n_real not read)
+    "nbmf_h_terms_dense": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+    # x, part1, part2, out, num, den, k, rows, cols, rows_per_block, bmw,
+    # dtype, frag, device, stream
+    "nbmf_probe_reduce": [_P] * 6 + [_I] * 8 + [_P],
 }
+# The H- and W-pass probes of probes.cu take the production signatures.
+_SIGNATURES.update(
+    {f"nbmf_probe_{name}{suffix}": _SIGNATURES[f"nbmf_{like}"]
+     for like, names in (("hloss_terms_packed", ("hloss_product", "hloss_select", "hloss_dense",
+                                                 "mxu_plus1", "mxu_data", "mxu_weighted")),
+                         ("w_terms_packed", ("w_product", "w_select", "w_chain3_tile")))
+     for name in names for suffix in ("", "_bf16")}
+)
 
 
 def _nvcc() -> str:

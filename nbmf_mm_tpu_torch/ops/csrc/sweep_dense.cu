@@ -9,6 +9,8 @@
 // nbmf_loglik_sum_dense replaces loglik_sum: the H-pass instance with the
 //    Num/Den work compiled out, on the same block split, so its ll equals
 //    the H pass's ll bitwise.
+// nbmf_h_terms_dense replaces h_terms: the H-pass instance with the loss
+//    compiled out, so its Num/Den equal the H pass's bitwise.
 // The tiled and stripe forms of the TPU exist for its VMEM budget; here one
 // kernel per pass takes any padded shape.
 //
@@ -33,6 +35,19 @@ int nbmf_hloss_terms_dense(const float* W, const float* H, const float* Ym, cons
     return run_hloss<float, true>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part, ll, k,
                                   Mp, Np, bm, m_real, n_real, rows_per_split, eps, device,
                                   stream_ptr);
+}
+
+// Num/Den (k, Np) alone (h_terms): the instance above with the logs and the
+// ll partials compiled out, so its Num/Den equal nbmf_hloss_terms_dense's
+// bitwise.  The signature is nbmf_hloss_terms_dense's; ll_part, ll, m_real
+// and n_real are not read.
+int nbmf_h_terms_dense(const float* W, const float* H, const float* Ym, const float* Yc,
+                       float* num, float* den, float* num_part, float* den_part, double* ll_part,
+                       float* ll, int k, int Mp, int Np, int bm, int m_real, int n_real,
+                       int rows_per_split, float eps, int device, void* stream_ptr) {
+    return run_hloss<float, true, false>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part,
+                                         ll, k, Mp, Np, bm, m_real, n_real, rows_per_split, eps,
+                                         device, stream_ptr);
 }
 
 // T (k, Mp) from Ym, the new H and, when given, Ym2.

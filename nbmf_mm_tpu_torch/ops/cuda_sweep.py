@@ -223,11 +223,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=True):
+def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=True,
+                  loss=True):
     """Allocate the outputs and scratch of an H-pass entry point (packed or
-    dense; with ``terms=False`` the ll-only one) and launch it on the
-    current stream.  Returns ``(Num, Den, ll)``, ``Num``/``Den`` None
-    without terms."""
+    dense; with ``terms=False`` the ll-only one, with ``loss=False`` one
+    without ll) and launch it on the current stream.  Returns
+    ``(Num, Den, ll)``, ``Num``/``Den`` None without terms, ``ll`` None
+    without loss.  ``y`` may be None for an entry that reads no data."""
     from ._build import load_library
 
     lib = load_library()
@@ -235,8 +237,10 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
     Np = H.shape[1]
     dev = W.device
     rows_per_split, nsplit = _split_rows(Mp // PACKED_WORD_BITS, Np, dev)
-    ll = torch.empty((), dtype=torch.float32, device=dev)
-    ll_part = torch.empty(-(-Np // 32) * nsplit, dtype=torch.float64, device=dev)
+    ll = ll_part = None
+    if loss:
+        ll = torch.empty((), dtype=torch.float32, device=dev)
+        ll_part = torch.empty(-(-Np // 32) * nsplit, dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tail = (k, Mp, Np, bm, m_real, n_real, rows_per_split, float(eps), dev.index or 0, stream)
     num = den = num_part = den_part = None
@@ -249,23 +253,23 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
         outs = (num.data_ptr(), den.data_ptr(), _ptr(num_part), _ptr(den_part))
     else:
         outs = ()
-    err = getattr(lib, entry)(W.data_ptr(), H.data_ptr(), y.data_ptr(), _ptr(y2), *outs,
-                              ll_part.data_ptr(), ll.data_ptr(), *tail)
+    err = getattr(lib, entry)(W.data_ptr(), H.data_ptr(), _ptr(y), _ptr(y2), *outs,
+                              _ptr(ll_part), _ptr(ll), *tail)
     _raise_on_error(lib, who, err)
     return num, den, ll
 
 
-def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm):
-    """Allocate ``T (k, Mp)`` and launch a W-pass entry point on the current
-    stream."""
+def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
+    """Allocate ``T (n_out k, Mp)`` and launch a W-pass entry point on the
+    current stream; ``y`` may be None for an entry that reads no data."""
     from ._build import load_library
 
     lib = load_library()
     k, Mp = W.shape
-    T = torch.empty((k, Mp), dtype=torch.float32, device=W.device)
+    T = torch.empty((n_out * k, Mp), dtype=torch.float32, device=W.device)
     stream = torch.cuda.current_stream(W.device).cuda_stream
     err = getattr(lib, entry)(
-        W.data_ptr(), H_new.data_ptr(), y.data_ptr(), _ptr(y2), T.data_ptr(),
+        W.data_ptr(), H_new.data_ptr(), _ptr(y), _ptr(y2), T.data_ptr(),
         k, Mp, H_new.shape[1], bm, n_real, float(eps), W.device.index or 0, stream,
     )
     _raise_on_error(lib, who, err)

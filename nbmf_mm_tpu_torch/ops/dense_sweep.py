@@ -40,14 +40,16 @@ from . import cuda_sweep as cs
 __all__ = [
     "LAUNCHES",
     "hloss_terms_plain",
+    "h_terms_plain",
     "w_terms_plain",
     "loglik_sum_plain",
     "hloss_terms",
+    "h_terms",
     "w_terms",
     "loglik_sum",
 ]
 
-LAUNCHES = {"hloss_terms": 0, "w_terms": 0, "loglik_sum": 0}
+LAUNCHES = {"hloss_terms": 0, "h_terms": 0, "w_terms": 0, "loglik_sum": 0}
 
 
 # ------------------------------------------------------------ plain versions
@@ -67,6 +69,13 @@ def hloss_terms_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real):
     p = Ym * (b * r)
     q = yc * (a * r)
     return W @ p, W @ q, _masked_ll(Ym, yc, a, b, m_real, n_real)
+
+
+def h_terms_plain(W, H, Ym, Yc=None, *, eps):
+    """Plain PyTorch version of ``h_terms``: ``(Num, Den)`` without ll."""
+    a, b, r = cs._ratio_terms(W, H, eps)
+    yc = 1.0 - Ym if Yc is None else Yc
+    return W @ (Ym * (b * r)), W @ (yc * (a * r))
 
 
 def w_terms_plain(W, H_new, Ym, Ym2=None, *, eps, n_real):
@@ -108,6 +117,28 @@ def hloss_terms(
                            eps=eps, m_real=m_real, n_real=n_real, bm=bm)
     LAUNCHES["hloss_terms"] += 1
     return out
+
+
+def h_terms(
+    W: torch.Tensor,
+    H: torch.Tensor,
+    Ym: torch.Tensor,
+    Yc: Optional[torch.Tensor] = None,
+    *,
+    eps: float = 1e-8,
+    bm: int,
+):
+    """Dense H-update contractions alone: ``(Num, Den)`` (``(k, Np)`` each),
+    the JAX ``h_terms``; no caller in the library, timed by the measurement
+    path.  On the card bitwise the ``Num``/``Den`` of :func:`hloss_terms`."""
+    if W.device.type == "cpu":
+        return h_terms_plain(W, H, Ym, Yc, eps=eps)
+    cs._check_cuda_operands("h_terms", W, H, Ym, Yc, bm, dense=True)
+    Mp, Np = Ym.shape
+    num, den, _ = cs._launch_hloss("nbmf_h_terms_dense", "h_terms", W, H, Ym, Yc, eps=eps,
+                                   m_real=Mp, n_real=Np, bm=bm, loss=False)
+    LAUNCHES["h_terms"] += 1
+    return num, den
 
 
 def w_terms(

@@ -139,13 +139,37 @@ def test_dense_equals_packed_bitwise_on_binary_data(mode, dtype):
     assert torch.equal(T_dense, T_packed)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["none", "corrected"], ids=["Yc-None", "Yc-explicit"])
+@pytest.mark.parametrize("m, n", SHAPES, ids=["unpadded", "padded"])
+def test_h_terms_matches_pallas(m, n, mode, dtype):
+    c = _operands(m, n, mode, dtype)
+    num_j, den_j = ps.h_terms(_j(c["W"]), _j(c["H"]), _j(c["Ym"]), _j(c["Yc"]), eps=EPS,
+                              block_m=BLOCK, block_n=BLOCK, interpret=True)
+    num_t, den_t = ds.h_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), _t(c["Yc"]), eps=EPS,
+                              bm=BLOCK)
+    assert num_t.dtype == den_t.dtype == torch.tensor(c["W"]).dtype
+    assert _rel(num_t, num_j) <= TOL[dtype]
+    assert _rel(den_t, den_j) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_h_terms_equals_hloss_terms_bitwise(mode):
+    c = _operands(240, 250, mode, np.float32, seed=4)
+    args = (_t(c["W"]), _t(c["H"]), _t(c["Ym"]), _t(c["Yc"]))
+    num, den = ds.h_terms(*args, eps=EPS, bm=BLOCK)
+    num_l, den_l, _ = ds.hloss_terms(*args, eps=EPS, m_real=240, n_real=250, bm=BLOCK)
+    assert torch.equal(num, num_l) and torch.equal(den, den_l)
+
+
 def test_cpu_tensors_do_not_count_launches():
     c = _operands(240, 250, "parity", np.float64)
-    ds.LAUNCHES.update(hloss_terms=0, w_terms=0, loglik_sum=0)
+    ds.LAUNCHES.update(hloss_terms=0, h_terms=0, w_terms=0, loglik_sum=0)
     ds.hloss_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), eps=EPS, m_real=240, n_real=250, bm=32)
+    ds.h_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), eps=EPS, bm=32)
     ds.w_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), _t(c["Ym2"]), eps=EPS, n_real=250, bm=32)
     ds.loglik_sum(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), eps=EPS, m_real=240, n_real=250, bm=32)
-    assert ds.LAUNCHES == {"hloss_terms": 0, "w_terms": 0, "loglik_sum": 0}
+    assert ds.LAUNCHES == {"hloss_terms": 0, "h_terms": 0, "w_terms": 0, "loglik_sum": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -154,6 +178,7 @@ def test_wrappers_reject_other_devices():
     Y = torch.zeros((32, 4), device="meta")
     for call in (
         lambda: ds.hloss_terms(W, H, Y, eps=EPS, m_real=32, n_real=4, bm=32),
+        lambda: ds.h_terms(W, H, Y, eps=EPS, bm=32),
         lambda: ds.w_terms(W, H, Y, eps=EPS, n_real=4, bm=32),
         lambda: ds.loglik_sum(W, H, Y, eps=EPS, m_real=32, n_real=4, bm=32),
     ):

@@ -38,7 +38,12 @@ def test_import_leaves_jax_out():
         "import sys; sys.path.insert(0, %r); import nbmf_mm_tpu_torch, "
         "nbmf_mm_tpu_torch.ops.cuda_sweep, nbmf_mm_tpu_torch.ops.dense_sweep, "
         "nbmf_mm_tpu_torch.ops._build, nbmf_mm_tpu_torch.models.serving, "
-        "nbmf_mm_tpu_torch.utils.interop; "
+        "nbmf_mm_tpu_torch.utils.interop, nbmf_mm_tpu_torch.ops.probes, "
+        "nbmf_mm_tpu_torch.utils.profiling, nbmf_mm_tpu_torch.tools.bench_true, "
+        "nbmf_mm_tpu_torch.tools.bench_kernels, nbmf_mm_tpu_torch.tools.bench_packed, "
+        "nbmf_mm_tpu_torch.tools.bench_packed2, nbmf_mm_tpu_torch.tools.bench_packed3, "
+        "nbmf_mm_tpu_torch.tools.bench_diag, nbmf_mm_tpu_torch.tools.bench_stream, "
+        "nbmf_mm_tpu_torch.tools.bench_vpu; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'nbmf_mm_tpu' or m.startswith('nbmf_mm_tpu.')]; "
         "assert not bad, bad; print('ok')" % REPO
