@@ -5,7 +5,8 @@
 Builds the sweep kernels from ``nbmf_mm_tpu_torch/ops/csrc`` (one ``nvcc`` per
 source, started together) and checks each against its plain PyTorch version
 on the card: the bit-packed pair K1/K2 and the three dense kernels, which on
-binary data must equal K1/K2 bitwise.  Then it drives the port's three main
+binary data must equal K1/K2 bitwise, and the two W passes again at the
+shapes that hit their column split's edges.  Then it drives the port's three main
 paths through the entry points a user calls, each with the launch counters
 set to 0 just before and read just after:
 
@@ -19,7 +20,8 @@ set to 0 just before and read just after:
 
 It also checks packed against dense through ``solve``, runs masked and
 dir-beta fits and a fold-in on the lastfm matrix, and times the kernels, the
-two fused loops and the serving requests.
+two fused loops and the serving requests; each kernel's time is printed
+beside its bound (``FP32_PEAK``, ``HBM_RATE``).
 
 Phase 7 is the measurement path (``nbmf_mm_tpu_torch/tools/``): ``h_terms``
 and every variant of the ten probe kernels against their plain versions at
@@ -64,6 +66,21 @@ TOL_TERMS = 1e-5
 TOL_LL = 1e-6
 # Fold-in W from the kernels against the plain fold-in's after 50 iterations.
 TOL_FOLD_IN = 1e-4
+# A kernel's bound: the larger of its operations at the fp32 CUDA-core peak and
+# its bytes (each input read once, each output written once) at the HBM rate,
+# from NVIDIA's H100 SXM data sheet (at the 700 W limit).  Operations are the
+# reference's cost estimates (pallas_sweep.py, the tools/ probes), or one add
+# per element for the reductions, over this run's shapes.
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+# Phase 3's edge shapes of the W pass's column split (label, (m, n), k): the
+# serving chunks, ranks across every instance, n neither a multiple of the
+# column tile nor of a chunk (n_real inside the last tile), one word row in a
+# 64-row block (stripe bm = 32).
+W_EDGES = (("serving chunk 8192", (8_192, 10_000), 128),
+           ("serving chunk 64", (64, 10_000), 128),
+           *((f"ragged k={k}", (1_000, 1_234), k) for k in (1, 17, 33, 200, 256)),
+           ("single stripe bm=32", (20, 1_000), 8))
 # The JAX reference package is named as the port without its "_torch".
 SWEEP = "nbmf_mm_tpu_torch".removesuffix("_torch") + "/ops/pallas_sweep.py"
 # name: (source, file:line of the TPU kernel it replaces).  The kernels of
@@ -127,6 +144,16 @@ def cuda_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by) of work of ``flops`` operations moving ``nbytes``."""
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
 
 def zero_counts(*modules) -> None:
@@ -303,6 +330,45 @@ def check_dense_equals_packed(name, Y, k, card, cs, ds):
         check(same_h and same_T and same_ll, f"{name} {mode}: dense differs from packed")
 
 
+def check_wpass_edges(card, cs, ds, errors):
+    """K2 and the dense W pass at the shapes that hit the column split's
+    edges (W_EDGES): against their plain versions in all three mask modes,
+    launched twice for bitwise repeatability, dense == packed bitwise on
+    binary data, and the dense pass on [0,1] data under a weighted mask."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, (m, n), k in W_EDGES:
+        rng = np.random.default_rng(m + n + k)
+        Y = (rng.random((m, n)) < 0.3).astype(np.float32)
+        soft = rng.random((m, n)).astype(np.float32)
+        bm, Mp, Np = cs.plan_packing(m, n)
+        plan = cs.plan_w_split(Mp, Np, k, n_sm)
+        worst, repeat, same = 0.0, True, True
+        for mode in MODES:
+            o = operands(Y, k, mode, 8, cs)
+            s = operands(soft, k, mode, 9, cs, weighted=True)
+            k2 = lambda: cs.w_terms_packed(o["W"], o["H"], o["words"], o["words2_w"], eps=EPS,
+                                           n_real=n, bm=bm)
+            dw = lambda: ds.w_terms(o["W"], o["H"], o["Ym"], o["Ym2"], eps=EPS, n_real=n, bm=bm)
+            sw = lambda: ds.w_terms(s["W"], s["H"], s["Ym"], s["Ym2"], eps=EPS, n_real=n, bm=bm)
+            T, T2, D, D2, S, S2 = k2(), k2(), dw(), dw(), sw(), sw()
+            torch.cuda.synchronize()
+            pT = cs.w_terms_packed_plain(o["W"], o["H"], o["words"], o["words2_w"], eps=EPS,
+                                         n_real=n, bm=bm)
+            pS = ds.w_terms_plain(s["W"], s["H"], s["Ym"], s["Ym2"], eps=EPS, n_real=n)
+            worst = max(worst, rel(T, pT), rel(S, pS))
+            errors["w_terms_packed"] = max(errors["w_terms_packed"], abs_err(T, pT))
+            errors["w_terms"] = max(errors["w_terms"], abs_err(D, pT), abs_err(S, pS))
+            repeat &= all(map(torch.equal, (T, D, S), (T2, D2, S2)))
+            same &= torch.equal(T, D)
+        print(f"W pass {label} {m}x{n} k={k} (Mp {Mp}, Np {Np}, bm {bm}; {plan.nsplit} column "
+              f"chunks, {plan.blocks} blocks): K2 and dense W (binary, weighted [0,1]) in "
+              f"{'/'.join(MODES)}: max rel err {worst:.3e} (bound {TOL_TERMS:g} of max|plain|); "
+              f"bitwise repeat {repeat}; dense == packed bitwise {same} [{card}]", flush=True)
+        check(worst <= TOL_TERMS, f"W pass {label}: kernel disagrees with plain")
+        check(repeat, f"W pass {label}: outputs differ between two launches")
+        check(same, f"W pass {label}: dense differs from packed")
+
+
 def check_fit(name, est, losses, card):
     """The checks every main-path fit passes."""
     check(len(losses) == est.n_iter_ and np.isfinite(losses).all(), f"{name}: losses not finite")
@@ -454,32 +520,68 @@ def serving_path(FoldInServer, model, card, cs, ds):
 
 def time_kernels(X, P, k, card, cs, ds):
     """ms/call of each kernel and its plain version at the headline size:
-    K1/K2 on the binary matrix's words, the dense kernels on P (unmasked)."""
+    K1/K2 on the binary matrix's words, the dense kernels on P (unmasked);
+    then K2 and the dense W pass on the top serving chunk.  Each with its
+    bound; no single PyTorch call computes any of these functions."""
     o = operands(X, k, "unmasked", 2, cs)
     d = operands(P, k, "unmasked", 2, cs, weighted=True)
-    kw1 = dict(eps=EPS, m_real=o["m"], n_real=o["n"])
-    kw2 = dict(eps=EPS, n_real=o["n"])
+    m, n = o["m"], o["n"]
+    kw1 = dict(eps=EPS, m_real=m, n_real=n)
+    kw2 = dict(eps=EPS, n_real=n)
     W, H, words, Ym, bm = o["W"], o["H"], o["words"], d["Ym"], o["bm"]
-    times = {
+    mnk = m * n * k
+    factors_b = tensor_bytes(W, H)
+    num_den_b, T_b = 2 * tensor_bytes(H), tensor_bytes(W)
+    entries = {
         "hloss_terms_packed": (
-            cuda_ms(lambda: cs.hloss_terms_packed(W, H, words, bm=bm, **kw1)),
-            cuda_ms(lambda: cs.hloss_terms_packed_plain(W, H, words, bm=bm, **kw1))),
+            lambda: cs.hloss_terms_packed(W, H, words, bm=bm, **kw1),
+            lambda: cs.hloss_terms_packed_plain(W, H, words, bm=bm, **kw1),
+            8 * mnk, factors_b + tensor_bytes(words) + num_den_b + 4),
         "w_terms_packed": (
-            cuda_ms(lambda: cs.w_terms_packed(W, H, words, bm=bm, **kw2)),
-            cuda_ms(lambda: cs.w_terms_packed_plain(W, H, words, bm=bm, **kw2))),
+            lambda: cs.w_terms_packed(W, H, words, bm=bm, **kw2),
+            lambda: cs.w_terms_packed_plain(W, H, words, bm=bm, **kw2),
+            6 * mnk, factors_b + tensor_bytes(words) + T_b),
         "hloss_terms": (
-            cuda_ms(lambda: ds.hloss_terms(W, H, Ym, bm=bm, **kw1)),
-            cuda_ms(lambda: ds.hloss_terms_plain(W, H, Ym, **kw1))),
+            lambda: ds.hloss_terms(W, H, Ym, bm=bm, **kw1),
+            lambda: ds.hloss_terms_plain(W, H, Ym, **kw1),
+            8 * mnk, factors_b + tensor_bytes(Ym) + num_den_b + 4),
         "w_terms": (
-            cuda_ms(lambda: ds.w_terms(W, H, Ym, bm=bm, **kw2)),
-            cuda_ms(lambda: ds.w_terms_plain(W, H, Ym, **kw2))),
+            lambda: ds.w_terms(W, H, Ym, bm=bm, **kw2),
+            lambda: ds.w_terms_plain(W, H, Ym, **kw2),
+            6 * mnk, factors_b + tensor_bytes(Ym) + T_b),
         "loglik_sum": (
-            cuda_ms(lambda: ds.loglik_sum(W, H, Ym, bm=bm, **kw1)),
-            cuda_ms(lambda: ds.loglik_sum_plain(W, H, Ym, **kw1))),
+            lambda: ds.loglik_sum(W, H, Ym, bm=bm, **kw1),
+            lambda: ds.loglik_sum_plain(W, H, Ym, **kw1),
+            2 * mnk, factors_b + tensor_bytes(Ym) + 4),
     }
-    for name, (ms, plain_ms) in times.items():
-        print(f"timing {name} at {o['m']}x{o['n']} k={k}: kernel {ms:.4f} ms/call, "
-              f"plain {plain_ms:.4f} ms/call [{card}]", flush=True)
+    times = {}
+    for name, (fn, plain, flops, nbytes) in entries.items():
+        ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+        bound_ms, bound_by = bound(flops, nbytes)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+        print(f"timing {name} at {m}x{n} k={k}: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} "
+              f"ms/call; {flops / ms / 1e9:.2f} TFLOP/s by the reference's count, "
+              f"{100 * bound_ms / ms:.1f}% of its {bound_ms:.4f} ms bound ({bound_by}) [{card}]",
+              flush=True)
+    del o, d, W, H, words, Ym
+
+    rows = SERVE_BUCKETS[-1]
+    o = operands(X[:rows], k, "unmasked", 3, cs)
+    d = operands(P[:rows], k, "unmasked", 3, cs, weighted=True)
+    W, H, words, Ym, bm = o["W"], o["H"], o["words"], d["Ym"], o["bm"]
+    flops = 6 * rows * n * k
+    for name, fn, plain, data in (
+            ("w_terms_packed", lambda: cs.w_terms_packed(W, H, words, bm=bm, **kw2),
+             lambda: cs.w_terms_packed_plain(W, H, words, bm=bm, **kw2), words),
+            ("w_terms", lambda: ds.w_terms(W, H, Ym, bm=bm, **kw2),
+             lambda: ds.w_terms_plain(W, H, Ym, **kw2), Ym)):
+        ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+        bound_ms, bound_by = bound(flops, tensor_bytes(W, H, data) + tensor_bytes(W))
+        print(f"timing {name} at the {rows}x{n} serving chunk k={k}: kernel {ms:.4f} ms/call, "
+              f"plain {plain_ms:.4f} ms/call; {flops / ms / 1e9:.2f} TFLOP/s, "
+              f"{100 * bound_ms / ms:.1f}% of its {bound_ms:.4f} ms bound ({bound_by}) [{card}]",
+              flush=True)
     return times
 
 
@@ -555,8 +657,8 @@ def probe_cases(m, n, k, cs, ds, pr):
     block, block_n = (128, 128) if small else (512, 256)  # make_kernel's; hloss_ngrid's
     mnk = m * n * k
     cases = []
-    add = lambda name, label, fn, plain, flops=None, nbytes=None, scale=None: cases.append(
-        (name, label, fn, plain, flops, nbytes, scale))
+    add = lambda name, label, fn, plain, flops=None, nbytes=None, scale=None, library=None: \
+        cases.append((name, label, fn, plain, flops, nbytes, scale, library))
     for Yc, label in ((None, "Yc=None"), (d["Yc"], "Yc explicit")):
         add("h_terms", label, partial(ds.h_terms, W, H, Y, Yc, bm=256),
             partial(ds.h_terms_plain, W, H, Y, Yc, eps=EPS), 6 * mnk)
@@ -564,8 +666,12 @@ def probe_cases(m, n, k, cs, ds, pr):
                        ("mxu_only", "HIGHEST")):
         fn = pr.make_kernel(kind, k, m, n, block, block, prec)
         plain = pr.make_kernel_plain(kind, k, m, n, block, block, prec)
+        # hbm_only's column sums: one torch.sum over the rows.
         add("make_kernel", f"{kind} {prec or ''}".strip(), partial(fn, W, H, Y),
-            partial(plain, W, H, Y), nbytes=4 * m * n if prec is None else None)
+            partial(plain, W, H, Y), 6 * mnk if kind == "mxu_only" else None,
+            nbytes=4 * m * n if prec is None else None,
+            library=partial(torch.sum, Y, dim=0, dtype=torch.float64) if kind == "hbm_only"
+            else None)
     for mxu, label in ((None, "f32"), (torch.bfloat16, "bf16")):
         for name, flops, extra in (("hloss_packed", 8, {}), ("w_packed", 4, {"n_real": n}),
                                    ("hloss_packed2", 8, {}), ("w_packed2", 4, {"n_real": n})):
@@ -591,14 +697,16 @@ def probe_cases(m, n, k, cs, ds, pr):
         X = Y if dt == "f32" else Yb
         add("stream_kernel", f"tile ({bm},{bn}) {dt}",
             partial(pr.stream_kernel(m, n, bm, bn, dt), X), partial(pr.stream_kernel_plain, X),
-            nbytes=X.numel() * X.element_size())
+            nbytes=X.numel() * X.element_size(),
+            library=partial(torch.sum, X, dtype=torch.float64))
     for frag, packed, label in RUNS:
         X = Yp if packed else Y
         # Words add as signed int32 values: hold the sum to sum |x|.
         scale = X.double().abs().sum() if frag == "stream_sum" and packed else None
         add("frag_kernel", label, partial(pr.frag_kernel, X, frag=frag, packed=packed),
             partial(pr.frag_kernel_plain, X, frag=frag, packed=packed),
-            nbytes=X.numel() * X.element_size(), scale=scale)
+            nbytes=X.numel() * X.element_size(), scale=scale,
+            library=partial(torch.sum, X, dtype=torch.float64) if frag == "stream_sum" else None)
     return cases, d
 
 
@@ -609,7 +717,7 @@ def check_probes(m, n, k, card, cs, ds, pr, errors, *, timed):
     Returns {kernel: (ms, plain_ms)} of each kernel's first variant."""
     cases, d = probe_cases(m, n, k, cs, ds, pr)
     outs = {}
-    for name, label, fn, plain, _, _, scale in cases:
+    for name, label, fn, plain, _, _, scale, _ in cases:
         got, again = as_tuple(fn()), as_tuple(fn())
         torch.cuda.synchronize()
         want = as_tuple(plain())
@@ -645,13 +753,22 @@ def check_probes(m, n, k, card, cs, ds, pr, errors, *, timed):
     check(all(same.values()), f"a bitwise equality of the probes failed: {same}")
 
     times = {}
-    for name, label, fn, plain, flops, nbytes, _ in (cases if timed else ()):
+    for name, label, fn, plain, flops, nbytes, _, library in (cases if timed else ()):
         ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-        times.setdefault(name, (ms, plain_ms))
+        # The bound: the tool's count, else one add per element of the
+        # operand; every tensor argument read once, every output written once.
+        operand = next(a for a in reversed(fn.args) if isinstance(a, torch.Tensor))
+        bound_ms, bound_by = bound(flops or operand.numel(),
+                                   tensor_bytes(*fn.args) + tensor_bytes(*outs[(name, label)]))
+        library_ms = cuda_ms(library) if library is not None else None
+        times.setdefault(name, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=library_ms))
         rate = f", {flops / ms / 1e9:.2f} TFLOP/s by the tool's count" if flops else ""
         rate += f", {nbytes / ms / 1e6:.1f} GB/s" if nbytes else ""
+        lib = f", library {library_ms:.4f} ms/call" if library_ms is not None else ""
         print(f"timing probe {name} {label} at {m}x{n} k={k}: kernel {ms:.4f} ms/call, plain "
-              f"{plain_ms:.4f} ms/call{rate} [{card}]", flush=True)
+              f"{plain_ms:.4f} ms/call{lib}{rate}, {100 * bound_ms / ms:.1f}% of its "
+              f"{bound_ms:.4f} ms bound ({bound_by}) [{card}]", flush=True)
     return times
 
 
@@ -725,6 +842,7 @@ def main() -> None:
     check_dense_kernels("one-word-row", tiny * 0.5 + 0.25, 4, card, cs, ds, errors)
     check_dense_equals_packed("headline", X, HEADLINE["k"], card, cs, ds)
     check_dense_equals_packed("lastfm", lastfm, 8, card, cs, ds)
+    check_wpass_edges(card, cs, ds, errors)
 
     # ------------------------------------------------------ 4. main paths
     # Launches per kernel, summed over the three main-path runs.
@@ -773,8 +891,7 @@ def main() -> None:
 
     kernels = [
         {"name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errors[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "launches": launches[name], "max_abs_err": errors[name], **times[name]}
         for name, (source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

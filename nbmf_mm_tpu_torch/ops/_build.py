@@ -35,12 +35,13 @@ _SIGNATURES = {
     # W, H, words, words2, num, den, num_part, den_part, ll_part, ll,
     # k, Mp, Np, bm, m_real, n_real, rows_per_split, eps, device, stream
     "nbmf_hloss_terms_packed": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
-    # W, H, words, words2, T, k, Mp, Np, bm, n_real, eps, device, stream
-    "nbmf_w_terms_packed": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # W, H, words, words2, T, part, k, Mp, Np, bm, n_real, nsplit, eps,
+    # device, stream
+    "nbmf_w_terms_packed": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     # as nbmf_hloss_terms_packed with dense Ym, Yc in place of the words
     "nbmf_hloss_terms_dense": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     # as nbmf_w_terms_packed with dense Ym, Ym2 in place of the words
-    "nbmf_w_terms_dense": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "nbmf_w_terms_dense": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     # W, H, Ym, Yc, ll_part, ll, k, Mp, Np, bm, m_real, n_real, rows_per_split,
     # eps, device, stream
     "nbmf_loglik_sum_dense": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
@@ -71,8 +72,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (searched PATH, CUDA_HOME and /usr/local/cuda)")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
 def _library_path() -> Path:
@@ -92,10 +93,10 @@ def build_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
-def _compile(out: Path) -> None:
-    """``nvcc -c`` every source at once, then link; the log keeps what ptxas
-    printed and the compile's wall time."""
-    cu, _ = _sources()
+def _compile(out: Path, csrc: Path = CSRC) -> None:
+    """``nvcc -c`` every source of ``csrc`` at once, then link into ``out``;
+    the log beside it keeps what ptxas printed and the compile's wall time."""
+    cu, _ = _sources(csrc)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()

@@ -267,14 +267,15 @@ NBMF_PROBE_H(nbmf_probe_mxu_weighted_bf16, float, false, WeightedBf16)
 #undef NBMF_PROBE_H
 
 // A W-pass probe: the production signature (nbmf_w_terms_packed's); y2
-// must be NULL.  chain3_tile reads no data operand and writes (2k, Mp).
+// must be NULL.  chain3_tile reads no data operand and writes (2k, Mp), its
+// split partials (nsplit, 2k, Mp).
 #define NBMF_PROBE_W(NAME, Y, POLICY)                                                          \
     extern "C" int NAME(const float* W, const float* H, const Y* y, const Y* y2, float* T,     \
-                        int k, int Mp, int Np, int bm, int n_real, float eps, int device,      \
-                        void* stream) {                                                        \
+                        float* part, int k, int Mp, int Np, int bm, int n_real, int nsplit,    \
+                        float eps, int device, void* stream) {                                 \
         if (y2 != nullptr) return (int)cudaErrorInvalidValue;                                  \
-        return run_wterms_as<false, Y, POLICY>(W, H, y, nullptr, T, k, Mp, Np, bm, n_real,     \
-                                               eps, device, stream);                           \
+        return run_wterms_as<false, Y, POLICY>(W, H, y, nullptr, T, part, k, Mp, Np, bm,       \
+                                               n_real, nsplit, eps, device, stream);           \
     }
 
 NBMF_PROBE_W(nbmf_probe_w_product, int32_t, OneMatmulProductF32)

@@ -50,11 +50,13 @@ int nbmf_h_terms_dense(const float* W, const float* H, const float* Ym, const fl
                                          device, stream_ptr);
 }
 
-// T (k, Mp) from Ym, the new H and, when given, Ym2.
+// T (k, Mp) from Ym, the new H and, when given, Ym2; scratch as
+// nbmf_w_terms_packed.
 int nbmf_w_terms_dense(const float* W, const float* H, const float* Ym, const float* Ym2,
-                       float* T, int k, int Mp, int Np, int bm, int n_real, float eps, int device,
-                       void* stream_ptr) {
-    return run_wterms<float>(W, H, Ym, Ym2, T, k, Mp, Np, bm, n_real, eps, device, stream_ptr);
+                       float* T, float* part, int k, int Mp, int Np, int bm, int n_real,
+                       int nsplit, float eps, int device, void* stream_ptr) {
+    return run_wterms<float>(W, H, Ym, Ym2, T, part, k, Mp, Np, bm, n_real, nsplit, eps, device,
+                             stream_ptr);
 }
 
 // ll (scalar) of the current (W, H) over the real region; ll_part holds

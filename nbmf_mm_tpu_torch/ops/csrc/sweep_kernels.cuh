@@ -6,16 +6,16 @@
 //   hloss_kernel  Num = W.P, Den = W.Q (k, Np) and the Bernoulli
 //                 log-likelihood ll of the current (W, H); with TERMS=false
 //                 only ll (the loglik_sum pass);
-//   wterms_kernel T = H.P^T + (1-H).Q^T (k, Mp) with the new H.
+//   wpass_kernel  T = H.P^T + (1-H).Q^T (k, Mp) with the new H.
 // The H pass also takes LOSS (false: the logs compiled out, h_terms) and
 // both take a per-entry policy E (struct Sweep below); the defaults are the
 // production passes, and the measurement probes of probes.cu set the rest.
 // Y = int32_t reads bit-packed words, Y = float reads dense (Mp, Np) f32
 // operands.  Both loaders yield the 32 data rows of word row w in the same
 // bit-plane order (row0 + b*bmw for bit b), so the two instances share the
-// block split, the register accumulators and the fixed-order fp64 ll
-// partials, and on exactly-binary operands the dense instance gives the
-// packed one's outputs bitwise (the select identities of the JAX package's
+// block split, the register accumulators and the fixed-order sums, and on
+// exactly-binary operands the dense instance gives the packed one's outputs
+// bitwise (the select identities of the JAX package's
 // pallas_sweep.py:744-752: 1*x = x, 0*x + y = y).
 //
 // Notation: WH = W^T H, a = WH + eps, b = max(1 - WH, 0) + eps,
@@ -25,20 +25,37 @@
 // j*bm + b*bmw + i, bmw = bm/32.
 //
 // What bounds them on an H100: at m = n = 1e4, k = 128 the H pass does
-// ~8 m n k = 1.0e11 flops (the W pass ~6 m n k) against 12.5 MB of words or
-// 400 MB of dense f32 (0.12 ms of HBM time at 3.35 TB/s), so both are
-// bound by arithmetic, not by device memory.  The design keeps every (m, n)
-// intermediate on chip: a block stages a (k x 32) slice of W and a (k x 32)
-// tile of H in shared memory, forms the 32 x 32 tile of WH, p and q there,
-// and folds it into per-thread fp32 register accumulators.  Dense operands
-// are read with plain loads coalesced along the column tile.  This first
-// version runs fp32 FMA on the CUDA cores; the tensor cores (wgmma, TF32)
-// and TMA are later work.
+// ~8 m n k = 1.0e11 flops (the W pass 6 m n k = 7.7e10) against 12.5 MB of
+// words or 400 MB of dense f32 (0.12 ms of HBM time at 3.35 TB/s), so both
+// are bound by fp32 arithmetic, not by device memory: 1.53 ms and 1.15 ms at
+// the 67 TFLOP/s fp32 CUDA-core peak.  The H pass stages a (k x 32) slice of
+// W and a (k x 32) tile of H in shared memory, forms the 32 x 32 tile of WH,
+// p and q there, and folds it into per-thread fp32 register accumulators;
+// dense operands are read with plain loads coalesced along the column tile.
+//
+// The W pass (wpass_kernel) replaces the TPU kernels w_terms_packed
+// (pallas_sweep.py:947), w_terms (:333) and w_terms_stripe (:650), and is
+// designed for this card against what held back the first port of it (one
+// block per word row walking every column, 9 TFLOP/s):
+//   - FMAs per issue slot: register micro-tiles for both products with
+//     16-byte shared loads (phase B: 8 k rows x 4 data rows a thread, 256
+//     FMAs per 24 loads) and 1 - h formed once per tile into its own shared
+//     array instead of inside every FMA;
+//   - filling the card: 64-row blocks times S column chunks, S planned on
+//     the host (cuda_sweep.plan_w_split) for at least two rounds of resident
+//     blocks, the S partials added in a fixed order by a second kernel;
+//   - stalls on loads: the next H tile and operand tile arrive by cp.async
+//     into a second buffer while the current tile computes;
+//   - registers: __launch_bounds__ keeps two 256-thread blocks on an SM
+//     (128 registers, no spills, by ptxas -v) up to k = 128.
+// fp32 FMA on the CUDA cores throughout; TF32 on the tensor cores would
+// change the numerics and is left to the precision tiers.
 //
 // Determinism: no float atomics.  Every output element and every partial is
 // written by one thread, and the cross-block sums (the H pass's split over
-// m and its ll partials) run in a fixed order in separate small kernels, so
-// a launch on the same inputs gives bitwise the same outputs.
+// m and its ll partials, the W pass's split over n) run in a fixed order in
+// separate small kernels, so a launch on the same inputs gives bitwise the
+// same outputs.
 //
 // Numerics follow the TPU kernels: one IEEE reciprocal r = 1/(a b), logf,
 // two nonnegative accumulations in the W pass (never the one-matmul identity
@@ -331,132 +348,343 @@ __global__ void sum_ll_kernel(const double* __restrict__ part, int count, float*
 }
 
 // ------------------------------------------------------------ W pass
-// Grid (Mp/32): block w owns word row w, i.e. 32 data rows, and walks all
-// columns in tiles of 32.  Thread t = 32 g + lane holds T for rows
-// kk = g + 8 i of data row `lane` as two nonnegative register sums.
-// SECOND: an explicit Ym2 (both masked modes); otherwise the complement is
-// synthesized as 1 - ym (bit: !bit) for col < n_real.
-template <int KPT, bool SECOND, typename Y, class E = Sweep>
-__global__ void __launch_bounds__(kThreads)
-wterms_kernel(const float* __restrict__ W, const float* __restrict__ H,
-              const Y* __restrict__ y, const Y* __restrict__ y2,
-              float* __restrict__ T, int k, int Mp, int Np, int bm, int n_real, float eps) {
-    constexpr bool kDense = std::is_same<Y, float>::value;
-    extern __shared__ float smem[];
-    constexpr int kpad = 8 * KPT;
-    float* Ws = smem;
-    float* Hs = Ws + kpad * kTile;
-    float* Ps = Hs + kpad * kTile;
-    float* Qs = Ps + kTile * kPitch;
+// T = H.P^T + (1-H).Q^T (k, Mp), redesigned for the H100 (see the note at
+// the head of this file for what it replaces and its bound).
+//
+// Grid (ceil(Mw/2), S): block (x, s) owns the kWRows = 64 data rows of word
+// rows 2x and 2x+1 (local row lr is bit lr % 32 of word row 2x + lr / 32,
+// the bit-plane order of load_w_slice) and column chunk s of S, a run of
+// whole 32-column tiles (the first nt % S chunks take one tile more).  Each
+// block writes its (n_out k, 64) partial of T once, into T itself when S = 1
+// or into scratch (S, n_out k, Mp); sum_parts_kernel then adds the S
+// partials in order s = 0, 1, ...: no float atomics, and a launch on the
+// same inputs gives bitwise the same T.
+//
+// Per 32-column tile, two phases between barriers:
+//   A  the 64 x 32 tile of WH (each thread 2 rows x 4 columns, W and H read
+//      as 16-byte shared loads, contraction over k in ascending order), then
+//      p and q written to Ps/Qs, and 1 - h staged once into Hc;
+//   B  the (k x 64) accumulation over the tile's columns: each thread
+//      owns k rows kg + 16 i (i < TK) and data rows rg + 16 r (r < 4) as
+//      two register sums tp (h p) and tq ((1-h) q),
+//      added at the end, never the one-matmul identity.  Per 4 columns it
+//      loads 8 float4 of p and q and 2 float4 of h and 1 - h per k row:
+//      256 FMAs for 24 shared loads at TK = 8.
+// The next tile's H (and operand) tile arrives by cp.async while phase B
+// runs: H is double-buffered, the operand tile is consumed in phase A.
+// Shared tiles whose rows are read at one column by many threads swizzle
+// their 16-byte chunks (chunk c of row r stored at c ^ (r & 7)), so those
+// reads are free of bank conflicts.
+constexpr int kWRows = 64;  // data rows per block: two word rows
+constexpr int kWCols = 32;  // columns per tile
 
-    const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-    const int w = blockIdx.x, bmw = bm / 32;
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src, bool valid) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+    const int src_size = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+                 "r"(src_size));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Data row of bit b of word row w for stripe bm (bmw = bm / 32).
+__device__ __forceinline__ int word_row_bit(int w, int b, int bm, int bmw) {
     const int j = w / bmw;
-    const int row0 = j * bm + (w - j * bmw);
+    return j * bm + (w - j * bmw) + b * bmw;
+}
 
-    load_w_slice<E::kBf16>(Ws, W, k, kpad, Mp, row0, bmw);
+__device__ __forceinline__ float lane(const float4& v, int c) {
+    return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float4 f4(const float v[4]) { return make_float4(v[0], v[1], v[2], v[3]); }
 
-    float tp[KPT], tq[KPT];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) tp[i] = tq[i] = 0.f;
-    float qsum = 0.f;  // sum_n Q of data row `lane` (one-matmul form)
+// Shapes of one W-pass instance: TK k rows per thread (kpad = 16 TK >= k).
+template <int TK, bool SECOND, typename Y, class E>
+struct WPass {
+    static constexpr bool kDense = std::is_same<Y, float>::value;
+    static constexpr bool kReads = E::kWForm != 2;  // chain3_tile reads no operand
+    static constexpr bool kHc = E::kWForm == 0;     // (1 - H).Q^T
+    static constexpr int kpad = 16 * TK;
+    static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
+    // Shared memory in floats: Ws [kpad/4][64][4]; Hs two stages of
+    // [kpad][32]; Hc [kpad][32]; Ps, Qs [64][32]; operand tiles, dense
+    // [64][32] or words [2][32], each.
+    static constexpr int kWs = kpad * kWRows;
+    static constexpr int kHs = kpad * kWCols;
+    static constexpr int kPQ = kWRows * kWCols;
+    static constexpr int kYs = kDense ? kWRows * kWCols : 2 * kWCols;
+    static constexpr size_t kSmem =
+        sizeof(float) * (size_t)(kWs + 2 * kHs + (kHc ? kHs : 0) + 2 * kPQ + kOperands * kYs);
+    // Two blocks per SM (<= 128 registers a thread) while the accumulators
+    // leave room; one at TK = 16.
+    static constexpr int kMinBlocks = TK <= 8 ? 2 : 1;
+};
 
-    for (int c0 = 0; c0 < Np; c0 += kTile) {
-        __syncthreads();  // Ws staged / the previous tile's readers are done
-        load_h_tile<E::kBf16>(Hs, H, k, kpad, Np, c0);
-        __syncthreads();
+template <int TK, bool SECOND, typename Y, class E>
+__global__ void __launch_bounds__(kThreads, (WPass<TK, SECOND, Y, E>::kMinBlocks))
+wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
+             const Y* __restrict__ y, const Y* __restrict__ y2, float* __restrict__ dst, int k,
+             int Mp, int Np, int bm, int n_real, float eps) {
+    using P = WPass<TK, SECOND, Y, E>;
+    constexpr bool kDense = P::kDense;
+    constexpr int kpad = P::kpad;
+    extern __shared__ __align__(16) float smem[];
+    float* Ws = smem;
+    float* Hbuf = Ws + P::kWs;
+    float* Hc = Hbuf + 2 * P::kHs;
+    float* Ps = Hc + (P::kHc ? P::kHs : 0);
+    float* Qs = Ps + P::kPQ;
+    float* Ys = Qs + P::kPQ;  // y's tile, then y2's
 
-        const int col = c0 + lane;
-        const bool col_in = col < Np;
-        uint32_t word = 0u, word2 = 0u;
-        float ym[4], ym2[4];
-        if constexpr (E::kWForm == 2) {
-            // chain3_tile reads no data operand
-        } else if constexpr (kDense) {
-            load_dense(ym, y, row0, bmw, g, Np, col, col_in);
-            if constexpr (SECOND) load_dense(ym2, y2, row0, bmw, g, Np, col, col_in);
-        } else {
-            word = col_in ? (uint32_t)y[(size_t)w * Np + col] : 0u;
-            word2 = (SECOND && col_in) ? (uint32_t)y2[(size_t)w * Np + col] : 0u;
+    const int tid = threadIdx.x;
+    const int bmw = bm / 32, Mw = Mp / 32;
+    const int w0 = 2 * blockIdx.x;
+    const int nt = (Np + kWCols - 1) / kWCols;
+    const int S = gridDim.y, s = blockIdx.y;
+    const int t_begin = s * (nt / S) + min(s, nt % S);
+    const int t_end = t_begin + nt / S + (s < nt % S ? 1 : 0);
+    const int kw = (k + 7) & ~7;  // k rows phase A visits (rows >= k are zero)
+
+    for (int e = tid; e < kpad * kWRows; e += kThreads) {
+        const int kk = e / kWRows, lr = e % kWRows;
+        const int w = w0 + lr / 32;
+        const float v =
+            (kk < k && w < Mw) ? W[(size_t)kk * Mp + word_row_bit(w, lr % 32, bm, bmw)] : 0.f;
+        Ws[((kk >> 2) * kWRows + lr) * 4 + (kk & 3)] = mxu_operand<E::kBf16>(v);
+    }
+
+    // Issue the cp.async copies of tile `tile` into H stage `st` and the
+    // operand tiles; zero beyond k, Np and the word rows.
+    auto stage = [&](int tile, int st) {
+        const int c0 = tile * kWCols;
+        float* Hs = Hbuf + st * P::kHs;
+        for (int e = tid; e < kpad * 8; e += kThreads) {
+            const int kk = e >> 3, ch = e & 7, col = c0 + 4 * ch;
+            const bool ok = kk < k && col < Np;
+            cp_async16(Hs + kk * kWCols + 4 * (ch ^ (kk & 7)), ok ? H + (size_t)kk * Np + col : H,
+                       ok);
         }
-        float wh[4];
-        tile_wh(wh, Ws, Hs, k, g, lane);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int r = g + 8 * q;
-            if constexpr (E::kWForm == 2) {
-                Ps[r * kPitch + lane] = col_in ? mxu_operand<E::kBf16>(wh[q]) : 0.f;
-                Qs[r * kPitch + lane] = col_in ? mxu_operand<E::kBf16>(wh[q] + 1.f) : 0.f;
-                continue;
+        if constexpr (P::kReads) {
+            constexpr int kRowsY = kDense ? kWRows : 2;
+            for (int e = tid; e < kRowsY * 8 * P::kOperands; e += kThreads) {
+                const int op = e / (kRowsY * 8), rem = e % (kRowsY * 8);
+                const int r = rem >> 3, ch = rem & 7, col = c0 + 4 * ch;
+                const int w = kDense ? w0 + r / 32 : w0 + r;
+                const bool ok = w < Mw && col < Np;
+                const Y* src = op ? y2 : y;
+                const size_t row = kDense ? (size_t)word_row_bit(w, r % 32, bm, bmw) : (size_t)w;
+                cp_async16(Ys + op * P::kYs + r * kWCols + 4 * ch, ok ? src + row * Np + col : src,
+                           ok);
             }
-            const float a = wh[q] + eps;
-            const float b = (E::kClampB ? fmaxf(1.f - wh[q], 0.f) : 1.f - wh[q]) + eps;
-            const float rr = 1.f / (a * b);
-            if constexpr (kDense) {
-                const float c = SECOND ? ym2[q] : (col < n_real ? 1.f - ym[q] : 0.f);
-                Ps[r * kPitch + lane] = col_in ? ym[q] * (b * rr) : 0.f;
-                Qs[r * kPitch + lane] = col_in ? c * (a * rr) : 0.f;
-            } else if constexpr (E::kWForm == 0 && E::kSelect) {
-                const bool bit = (word >> r) & 1u;
-                const bool bit2 = SECOND ? ((word2 >> r) & 1u) : (!bit && col < n_real);
-                Ps[r * kPitch + lane] = (col_in && bit) ? b * rr : 0.f;
-                Qs[r * kPitch + lane] = (col_in && bit2) ? a * rr : 0.f;
+        }
+        cp_async_commit();
+    };
+
+    // Phase A layout: rows rw and rw + 32, columns 4 cq .. 4 cq + 3.
+    const int cq = tid & 7, rw = tid >> 3;
+    // Phase B layout: k rows kg + 16 i, data rows rg + 16 r; a warp holds 8
+    // row groups and 4 k groups, so each of its p, q and h loads reads at
+    // most 128 distinct bytes (one shared-memory wavefront).
+    const int rg = (tid & 7) | ((tid >> 5 & 1) << 3), kg = (tid >> 3 & 3) | ((tid >> 6) << 2);
+    const int swp = rg & 7, swh = kg & 7;  // the swizzle keys of those rows
+
+    float tp[TK][4], tq[TK][4], qsum[4];
+#pragma unroll
+    for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) tp[i][r] = tq[i][r] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) qsum[r] = 0.f;
+
+    if (t_begin < t_end) stage(t_begin, 0);
+    for (int t = t_begin; t < t_end; ++t) {
+        const int st = (t - t_begin) & 1;
+        float* Hs = Hbuf + st * P::kHs;
+        cp_async_wait_all();
+        __syncthreads();  // tile t has landed; the previous phase B is done
+        if constexpr (E::kBf16) {
+            for (int e = tid; e < P::kHs; e += kThreads) Hs[e] = round_bf16(Hs[e]);
+            __syncthreads();
+        }
+
+        // ---- phase A: 1 - h, the WH tile, p and q
+        if constexpr (P::kHc) {
+            for (int e = tid; e < P::kHs / 4; e += kThreads) {
+                float4 v = reinterpret_cast<const float4*>(Hs)[e];
+                v.x = 1.f - v.x;
+                v.y = 1.f - v.y;
+                v.z = 1.f - v.z;
+                v.w = 1.f - v.w;
+                reinterpret_cast<float4*>(Hc)[e] = v;
+            }
+        }
+        float wh[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) wh[j][c] = 0.f;
+        // Fully unrolled over kpad, so every load is a register plus an
+        // immediate: the 8 swizzled column chunks of this thread, per row key.
+        const float4* Ws4 = reinterpret_cast<const float4*>(Ws);
+#pragma unroll 2
+        for (int k8 = 0; k8 < kw; k8 += 8) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int kq = (k8 >> 2) + half;
+                const float4 wa = Ws4[kq * kWRows + rw];
+                const float4 wb = Ws4[kq * kWRows + rw + 32];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int key = 4 * half + j;  // (k8 + key) & 7
+                    const float4 h =
+                        reinterpret_cast<const float4*>(Hs + (k8 + key) * kWCols)[cq ^ key];
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        wh[0][c] = fmaf(lane(wa, j), lane(h, c), wh[0][c]);
+                        wh[1][c] = fmaf(lane(wb, j), lane(h, c), wh[1][c]);
+                    }
+                }
+            }
+        }
+
+        const int c0 = t * kWCols + 4 * cq;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const int lr = rw + 32 * j;
+            float ym[4] = {0.f, 0.f, 0.f, 0.f}, ym2[4] = {0.f, 0.f, 0.f, 0.f};
+            uint32_t word[4] = {0u, 0u, 0u, 0u}, word2[4] = {0u, 0u, 0u, 0u};
+            if constexpr (P::kReads && kDense) {
+                const float4 v = reinterpret_cast<const float4*>(Ys + lr * kWCols)[cq];
+                ym[0] = v.x, ym[1] = v.y, ym[2] = v.z, ym[3] = v.w;
+                if constexpr (SECOND) {
+                    const float4 v2 = reinterpret_cast<const float4*>(Ys + P::kYs + lr * kWCols)[cq];
+                    ym2[0] = v2.x, ym2[1] = v2.y, ym2[2] = v2.z, ym2[3] = v2.w;
+                }
+            } else if constexpr (P::kReads) {
+                const int4 v = reinterpret_cast<const int4*>(Ys + j * kWCols)[cq];
+                word[0] = v.x, word[1] = v.y, word[2] = v.z, word[3] = v.w;
+                if constexpr (SECOND) {
+                    const int4 v2 = reinterpret_cast<const int4*>(Ys + P::kYs + j * kWCols)[cq];
+                    word2[0] = v2.x, word2[1] = v2.y, word2[2] = v2.z, word2[3] = v2.w;
+                }
+            }
+            float pv[4], qv[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int col = c0 + c;
+                const bool col_in = col < Np;
+                const float v = wh[j][c];
+                if constexpr (E::kWForm == 2) {
+                    pv[c] = col_in ? mxu_operand<E::kBf16>(v) : 0.f;
+                    qv[c] = col_in ? mxu_operand<E::kBf16>(v + 1.f) : 0.f;
+                    continue;
+                }
+                const float a = v + eps;
+                const float b = (E::kClampB ? fmaxf(1.f - v, 0.f) : 1.f - v) + eps;
+                const float rr = 1.f / (a * b);
+                if constexpr (kDense) {
+                    const float cm = SECOND ? ym2[c] : (col < n_real ? 1.f - ym[c] : 0.f);
+                    pv[c] = col_in ? ym[c] * (b * rr) : 0.f;
+                    qv[c] = col_in ? cm * (a * rr) : 0.f;
+                } else {
+                    const bool bit = (word[c] >> rw) & 1u;
+                    const bool bit2 = SECOND ? ((word2[c] >> rw) & 1u) : (!bit && col < n_real);
+                    float p, q;
+                    if constexpr (E::kSelect) {
+                        p = (col_in && bit) ? b * rr : 0.f;
+                        q = (col_in && bit2) ? a * rr : 0.f;
+                    } else {
+                        // ym unpacked to a float (tools/bench_packed.py): products
+                        static_assert(!SECOND, "the product form takes one operand");
+                        const float ymf = (float)bit;
+                        p = col_in ? ymf * (b * rr) : 0.f;
+                        q = col_in ? (col < n_real ? 1.f - ymf : 0.f) * (a * rr) : 0.f;
+                    }
+                    if constexpr (E::kWForm == 1) {
+                        // P - Q, where(bit, b r, -q) in the select form; both
+                        // forms give the same bits.  Q itself stays fp32.
+                        pv[c] = mxu_operand<E::kBf16>(E::kSelect ? (bit ? p : -q) : p - q);
+                    } else {
+                        pv[c] = p;
+                    }
+                    qv[c] = q;
+                }
+            }
+            const int chunk = lr * (kWCols / 4) + (cq ^ (lr & 7));
+            reinterpret_cast<float4*>(Ps)[chunk] = f4(pv);
+            reinterpret_cast<float4*>(Qs)[chunk] = f4(qv);
+        }
+        __syncthreads();  // Ps, Qs, Hc written; the operand tile is consumed
+        if (t + 1 < t_end) stage(t + 1, st ^ 1);
+
+        // ---- phase B: the accumulation over the tile's 32 columns
+        const float4* P4 = reinterpret_cast<const float4*>(Ps);
+        const float4* Q4 = reinterpret_cast<const float4*>(Qs);
+        const float4* H4 = reinterpret_cast<const float4*>(Hs);
+        const float4* C4 = reinterpret_cast<const float4*>(P::kHc ? Hc : Hs);
+#pragma unroll
+        for (int c4 = 0; c4 < kWCols / 4; ++c4) {
+            float4 p[4], q[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int chunk = (rg + 16 * r) * (kWCols / 4) + (c4 ^ swp);
+                p[r] = P4[chunk];
+                q[r] = Q4[chunk];
+                if constexpr (E::kWForm == 1)
+                    qsum[r] = (((qsum[r] + q[r].x) + q[r].y) + q[r].z) + q[r].w;
+            }
+#pragma unroll
+            for (int i = 0; i < TK; ++i) {
+                if (i > 0 && 16 * i >= k) break;  // uniform: every row kg + 16 i >= k
+                const int chunk = (kg + 16 * i) * (kWCols / 4) + (c4 ^ swh);
+                const float4 h = H4[chunk];
+                float4 hc = h;
+                if constexpr (P::kHc) hc = C4[chunk];
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) {
+                        tp[i][r] = fmaf(lane(h, c), lane(p[r], c), tp[i][r]);
+                        if constexpr (E::kWForm != 1)
+                            tq[i][r] = fmaf(lane(hc, c), lane(q[r], c), tq[i][r]);
+                    }
+            }
+        }
+    }
+
+    float* out = dst + (size_t)blockIdx.y * (E::kWForm == 2 ? 2 : 1) * k * Mp;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int lr = rg + 16 * r;
+        const int w = w0 + lr / 32;
+        if (w >= Mw) continue;
+        const int row = word_row_bit(w, lr % 32, bm, bmw);
+#pragma unroll
+        for (int i = 0; i < TK; ++i) {
+            const int kk = kg + 16 * i;
+            if (kk >= k) continue;
+            if constexpr (E::kWForm == 0) {
+                out[(size_t)kk * Mp + row] = tp[i][r] + tq[i][r];
+            } else if constexpr (E::kWForm == 1) {
+                out[(size_t)kk * Mp + row] = tp[i][r] + qsum[r];
             } else {
-                const bool bit = (word >> r) & 1u;
-                const bool bit2 = SECOND ? ((word2 >> r) & 1u) : (!bit && col < n_real);
-                float pv, qv;
-                if constexpr (E::kSelect) {
-                    pv = (col_in && bit) ? b * rr : 0.f;
-                    qv = (col_in && bit2) ? a * rr : 0.f;
-                } else {
-                    // ym unpacked to a float (tools/bench_packed.py): products
-                    static_assert(!SECOND, "the product form takes one operand");
-                    const float ymf = (float)bit;
-                    pv = col_in ? ymf * (b * rr) : 0.f;
-                    qv = col_in ? (col < n_real ? 1.f - ymf : 0.f) * (a * rr) : 0.f;
-                }
-                if constexpr (E::kWForm == 1) {
-                    // P - Q, where(bit, b r, -q) in the select form; both
-                    // forms give the same bits.  Q itself stays fp32.
-                    Ps[r * kPitch + lane] = mxu_operand<E::kBf16>(E::kSelect ? (bit ? pv : -qv)
-                                                                            : pv - qv);
-                } else {
-                    Ps[r * kPitch + lane] = pv;
-                }
-                Qs[r * kPitch + lane] = qv;
-            }
-        }
-        __syncthreads();
-
-        for (int c = 0; c < kTile; ++c) {
-            const float p = Ps[lane * kPitch + c];
-            const float qv = Qs[lane * kPitch + c];
-            if constexpr (E::kWForm == 1) qsum += qv;
-#pragma unroll
-            for (int i = 0; i < KPT; ++i) {
-                const float h = Hs[(g + 8 * i) * kTile + c];
-                tp[i] = fmaf(h, p, tp[i]);
-                if constexpr (E::kWForm == 0) tq[i] = fmaf(1.f - h, qv, tq[i]);
-                if constexpr (E::kWForm == 2) tq[i] = fmaf(h, qv, tq[i]);
+                out[(size_t)kk * Mp + row] = tp[i][r];
+                out[(size_t)(k + kk) * Mp + row] = tq[i][r];
             }
         }
     }
+}
 
-    const int row = row0 + lane * bmw;
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-        const int kk = g + 8 * i;
-        if constexpr (E::kWForm == 0) {
-            if (kk < k) T[(size_t)kk * Mp + row] = tp[i] + tq[i];
-        } else if constexpr (E::kWForm == 1) {
-            if (kk < k) T[(size_t)kk * Mp + row] = tp[i] + qsum;
-        } else {
-            if (kk < k) {
-                T[(size_t)kk * Mp + row] = tp[i];
-                T[(size_t)(k + kk) * Mp + row] = tq[i];
-            }
-        }
-    }
+// out[e] = sum over s of part[s][e], s in order (the W pass's column split).
+__global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                 int nsplit, size_t count) {
+    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= count) return;
+    float acc = part[e];
+    for (int s = 1; s < nsplit; ++s) acc += part[(size_t)s * count + e];
+    out[e] = acc;
 }
 
 // ------------------------------------------------------------ launchers
@@ -498,21 +726,36 @@ struct HlossLauncher {
 };
 
 template <bool SECOND, typename Y, class E>
-struct WtermsLauncher {
-    // One W-pass launch, grid Mp/32.
-    template <int KPT>
-    static cudaError_t launch(const float* W, const float* H, const Y* y, const Y* y2, float* T,
-                              int k, int Mp, int Np, int bm, int n_real, float eps,
+struct WpassLauncher {
+    // One W-pass launch, grid ceil(Mw/2) x nsplit, into dst (T, or the
+    // (nsplit, n_out k, Mp) partials).
+    template <int TK>
+    static cudaError_t launch(const float* W, const float* H, const Y* y, const Y* y2, float* dst,
+                              int k, int Mp, int Np, int bm, int n_real, int nsplit, float eps,
                               cudaStream_t stream) {
-        auto kernel = wterms_kernel<KPT, SECOND, Y, E>;
-        const size_t smem = smem_bytes(8 * KPT);
-        cudaError_t err =
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        using P = WPass<TK, SECOND, Y, E>;
+        auto kernel = wpass_kernel<TK, SECOND, Y, E>;
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)P::kSmem);
         if (err != cudaSuccess) return err;
-        kernel<<<Mp / 32, kThreads, smem, stream>>>(W, H, y, y2, T, k, Mp, Np, bm, n_real, eps);
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+        if (err != cudaSuccess) return err;
+        const dim3 grid((Mp / 32 + 1) / 2, nsplit);
+        kernel<<<grid, kThreads, P::kSmem, stream>>>(W, H, y, y2, dst, k, Mp, Np, bm, n_real, eps);
         return cudaGetLastError();
     }
 };
+
+// The W pass keeps TK = kpad / 16 k rows per thread: kpad = 16 TK >= k.
+template <class L, class... A>
+cudaError_t dispatch_tk(int k, A... args) {
+    if (k <= 16) return L::template launch<1>(args...);
+    if (k <= 32) return L::template launch<2>(args...);
+    if (k <= 64) return L::template launch<4>(args...);
+    if (k <= 128) return L::template launch<8>(args...);
+    return L::template launch<16>(args...);
+}
 
 // The H pass of one instance with its fixed-order reductions: Num/Den
 // (k, Np) and ll.  With nsplit > 1 the caller passes (nsplit, k, Np)
@@ -567,27 +810,43 @@ int run_hloss(const float* W, const float* H, const Y* y, const Y* y2, float* nu
                                                rows_per_split, eps, device, stream_ptr);
 }
 
-// The W pass of one instance: T (k, Mp), or (2k, Mp) for chain3_tile.
+// The W pass of one instance: T (k, Mp), or (2k, Mp) for chain3_tile, over
+// nsplit column chunks (1 <= nsplit <= ceil(Np/32)); with nsplit > 1 the
+// caller passes (nsplit, n_out k, Mp) scratch in part, else it may be NULL.
+// The operand rows are copied as 16-byte vectors: Np % 4 == 0 and H, y, y2
+// 16-byte aligned.
 template <bool SECOND, typename Y, class E = Sweep>
-int run_wterms_as(const float* W, const float* H, const Y* y, const Y* y2, float* T, int k,
-                  int Mp, int Np, int bm, int n_real, float eps, int device, void* stream_ptr) {
-    if (!geometry_ok(k, Mp, Np, bm)) return (int)cudaErrorInvalidValue;
+int run_wterms_as(const float* W, const float* H, const Y* y, const Y* y2, float* T, float* part,
+                  int k, int Mp, int Np, int bm, int n_real, int nsplit, float eps, int device,
+                  void* stream_ptr) {
+    const auto misaligned = [](const void* p) { return ((uintptr_t)p & 15u) != 0; };
+    if (!geometry_ok(k, Mp, Np, bm) || Np % 4 || nsplit < 1 || nsplit > (Np + kWCols - 1) / kWCols
+        || (nsplit > 1 && part == nullptr) || misaligned(H) || misaligned(y) || misaligned(y2))
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    return (int)dispatch_kpt<WtermsLauncher<SECOND, Y, E>>(k, W, H, y, y2, T, k, Mp, Np, bm,
-                                                           n_real, eps,
-                                                           (cudaStream_t)stream_ptr);
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    err = dispatch_tk<WpassLauncher<SECOND, Y, E>>(k, W, H, y, y2, nsplit > 1 ? part : T, k, Mp,
+                                                   Np, bm, n_real, nsplit, eps, stream);
+    if (err != cudaSuccess) return (int)err;
+    if (nsplit > 1) {
+        const size_t count = (size_t)(E::kWForm == 2 ? 2 : 1) * k * Mp;
+        const int blocks = (int)((count + kThreads - 1) / kThreads);
+        sum_parts_kernel<<<blocks, kThreads, 0, stream>>>(part, T, nsplit, count);
+    }
+    return (int)cudaGetLastError();
 }
 
 // The production W pass: T (k, Mp) from the operands y and, when given, y2.
 template <typename Y>
-int run_wterms(const float* W, const float* H, const Y* y, const Y* y2, float* T, int k, int Mp,
-               int Np, int bm, int n_real, float eps, int device, void* stream_ptr) {
+int run_wterms(const float* W, const float* H, const Y* y, const Y* y2, float* T, float* part,
+               int k, int Mp, int Np, int bm, int n_real, int nsplit, float eps, int device,
+               void* stream_ptr) {
     if (y2 != nullptr)
-        return run_wterms_as<true, Y>(W, H, y, y2, T, k, Mp, Np, bm, n_real, eps, device,
-                                      stream_ptr);
-    return run_wterms_as<false, Y>(W, H, y, y2, T, k, Mp, Np, bm, n_real, eps, device,
-                                   stream_ptr);
+        return run_wterms_as<true, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, eps,
+                                      device, stream_ptr);
+    return run_wterms_as<false, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, eps,
+                                   device, stream_ptr);
 }
 
 }  // namespace

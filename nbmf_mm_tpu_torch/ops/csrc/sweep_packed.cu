@@ -31,12 +31,14 @@ int nbmf_hloss_terms_packed(const float* W, const float* H, const int32_t* words
 }
 
 // T (k, Mp) from the words, the new H and, when given, words2 (else the
-// complement is synthesized as !bit && col < n_real).
+// complement is synthesized as !bit && col < n_real), over nsplit column
+// chunks; with nsplit > 1 the caller passes (nsplit, k, Mp) scratch in part,
+// else it may be NULL.
 int nbmf_w_terms_packed(const float* W, const float* H, const int32_t* words,
-                        const int32_t* words2, float* T, int k, int Mp, int Np, int bm,
-                        int n_real, float eps, int device, void* stream_ptr) {
-    return run_wterms<int32_t>(W, H, words, words2, T, k, Mp, Np, bm, n_real, eps, device,
-                               stream_ptr);
+                        const int32_t* words2, float* T, float* part, int k, int Mp, int Np,
+                        int bm, int n_real, int nsplit, float eps, int device, void* stream_ptr) {
+    return run_wterms<int32_t>(W, H, words, words2, T, part, k, Mp, Np, bm, n_real, nsplit, eps,
+                               device, stream_ptr);
 }
 
 const char* nbmf_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -29,7 +29,7 @@ pad columns are zero; the log-likelihood is masked exactly to
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,10 @@ __all__ = [
     "pack_bits_host",
     "unpack_bits",
     "apply_col_validity",
+    "WSplit",
+    "column_chunks",
+    "plan_w_split",
+    "w_blocks_per_sm",
     "hloss_terms_packed",
     "w_terms_packed",
 ]
@@ -51,6 +55,12 @@ PACKED_WORD_BITS = 32
 MAX_RANK = 256  # largest k the kernels take
 
 LAUNCHES = {"hloss_terms_packed": 0, "w_terms_packed": 0}
+
+# The W pass's block (csrc/sweep_kernels.cuh ``wpass_kernel``): 64 data rows
+# (two word rows) by a column chunk walked in 32-column tiles.
+W_ROWS = 64
+W_TILE = 32
+W_WAVES = 2  # rounds of resident blocks the W pass's grid should fill at least
 
 
 def round_up(x: int, m: int) -> int:
@@ -214,6 +224,65 @@ def _split_rows(Mw: int, Np: int, device) -> Tuple[int, int]:
     return rows_per_split, -(-Mw // rows_per_split)
 
 
+class WSplit(NamedTuple):
+    """The W pass's column split, as :func:`plan_w_split` plans it."""
+
+    nsplit: int  # S, the column chunks (grid dimension y)
+    chunks: Tuple[Tuple[int, int], ...]  # [begin, end) columns of chunk s, in order
+    scratch: Optional[Tuple[int, int, int]]  # (S, n_out k, Mp) partials; None when S == 1
+    blocks: int  # ceil(Mp / 64) row blocks times S
+    waves: float  # blocks over the blocks the card holds at once
+
+
+def w_blocks_per_sm(k: int) -> int:
+    """W-pass blocks one SM holds at once: two while ``k <= 128`` (the
+    kernel's launch bounds cap it at 128 registers a thread, and a block
+    takes at most 112 KiB of shared memory), one above."""
+    return 2 if k <= 128 else 1
+
+
+def column_chunks(Np: int, nsplit: int) -> Tuple[Tuple[int, int], ...]:
+    """``[begin, end)`` of each of ``nsplit`` column chunks of whole
+    32-column tiles, as the kernel cuts them: the first ``nt % nsplit``
+    chunks take one tile more than the rest; the last ends at ``Np``."""
+    nt = -(-Np // W_TILE)
+    if not 1 <= nsplit <= nt:
+        raise ValueError(f"column_chunks: {nsplit} chunks of {nt} tiles")
+    base, extra = divmod(nt, nsplit)
+    chunks, t = [], 0
+    for s in range(nsplit):
+        n = base + (s < extra)
+        chunks.append((t * W_TILE, min(Np, (t + n) * W_TILE)))
+        t += n
+    return tuple(chunks)
+
+
+def plan_w_split(Mp: int, Np: int, k: int, n_sm: int, n_out: int = 1) -> WSplit:
+    """Split the W pass's columns so that its ``ceil(Mp/64) x S`` grid fills
+    ``n_sm`` SMs for at least ``W_WAVES`` rounds of resident blocks.
+
+    ``S`` starts at the least count that gives those rounds (at most one
+    chunk per tile) and may grow to twice that where the last round and
+    the chunks' tile counts waste less: blocks of one launch do equal work,
+    so a round that is half full costs a full round.  The partials are
+    added in a fixed order by a second kernel, so every ``S`` gives a
+    bitwise repeatable ``T``.
+    """
+    row_blocks = -(-Mp // W_ROWS)
+    nt = -(-Np // W_TILE)
+    slots = n_sm * w_blocks_per_sm(k)
+    s0 = min(nt, -(-W_WAVES * slots // row_blocks))
+
+    def used(s):
+        blocks = row_blocks * s
+        return blocks / (-(-blocks // slots) * slots) * nt / (s * -(-nt // s))
+
+    nsplit = max(range(s0, min(nt, 2 * s0) + 1), key=lambda s: (used(s), -s))
+    blocks = row_blocks * nsplit
+    return WSplit(nsplit, column_chunks(Np, nsplit),
+                  (nsplit, n_out * k, Mp) if nsplit > 1 else None, blocks, blocks / slots)
+
+
 def _raise_on_error(lib, who, err):
     if err != 0:
         raise RuntimeError(f"{who}: CUDA error {err}: {lib.nbmf_error_string(err).decode()}")
@@ -260,17 +329,28 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
 
 
 def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
-    """Allocate ``T (n_out k, Mp)`` and launch a W-pass entry point on the
-    current stream; ``y`` may be None for an entry that reads no data."""
+    """Allocate ``T (n_out k, Mp)`` and the split scratch
+    (:func:`plan_w_split`) and launch a W-pass entry point on the current
+    stream; ``y`` may be None for an entry that reads no data.  The kernel
+    copies ``H``'s and the operands' rows as 16-byte vectors."""
     from ._build import load_library
 
+    for name, t in (("H", H_new), ("y", y), ("y2", y2)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must start on a 16-byte boundary")
     lib = load_library()
     k, Mp = W.shape
-    T = torch.empty((n_out * k, Mp), dtype=torch.float32, device=W.device)
-    stream = torch.cuda.current_stream(W.device).cuda_stream
+    Np = H_new.shape[1]
+    dev = W.device
+    plan = plan_w_split(Mp, Np, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                        n_out)
+    T = torch.empty((n_out * k, Mp), dtype=torch.float32, device=dev)
+    part = None if plan.scratch is None else torch.empty(plan.scratch, dtype=torch.float32,
+                                                         device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, entry)(
-        W.data_ptr(), H_new.data_ptr(), _ptr(y), _ptr(y2), T.data_ptr(),
-        k, Mp, H_new.shape[1], bm, n_real, float(eps), W.device.index or 0, stream,
+        W.data_ptr(), H_new.data_ptr(), _ptr(y), _ptr(y2), T.data_ptr(), _ptr(part),
+        k, Mp, Np, bm, n_real, plan.nsplit, float(eps), dev.index or 0, stream,
     )
     _raise_on_error(lib, who, err)
     return T

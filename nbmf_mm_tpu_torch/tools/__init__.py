@@ -5,5 +5,7 @@
 ``bench_true`` is the harness (slope timing); ``bench_kernels`` times the
 library's dense passes; the others time the probes of
 :mod:`nbmf_mm_tpu_torch.ops.probes`, which split one sweep pass into its
-matmul, elementwise and memory-stream costs.
+matmul, elementwise and memory-stream costs.  ``sass_diff`` compares the
+kernels' compiled code with that of another copy of the sources, and
+``wpass_tune`` times variants of the W pass to split its time by phase.
 """

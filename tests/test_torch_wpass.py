@@ -1,0 +1,310 @@
+"""The W pass's column split: the planner that sizes the kernel's grid, and the
+split decomposition it relies on, held against the JAX package.
+
+The CUDA W pass (``csrc/sweep_kernels.cuh`` ``wpass_kernel``) cuts the
+columns into ``S`` chunks of whole 32-column tiles, writes one partial of
+``T`` per chunk and adds the partials in chunk order.  Here each chunk goes
+through the plain version with its global column offset (``n_real`` less
+the chunk's first column, so the ``col < n_real`` complement stays right),
+the partials are summed in order, and the sum is compared with the JAX
+kernels run in interpret mode on the CPU.
+
+Tolerances: 1e-12 of max |T| in float64 (the same formulas, summed in
+another order); the probe forms 1e-5 of max |JAX| in float32, as
+``tests/test_torch_probes.py`` holds them (JAX with x64 off).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from nbmf_mm_tpu.ops import pallas_sweep as ps
+from nbmf_mm_tpu_torch.ops import cuda_sweep as cs
+from nbmf_mm_tpu_torch.ops import dense_sweep as ds
+from nbmf_mm_tpu_torch.ops import probes as pr
+from tools import bench_packed, bench_packed2, bench_packed3
+
+torch.set_num_threads(1)
+
+EPS = 1e-8
+H100_SMS = 132
+TOL_F64 = 1e-12
+TOL_PROBE = 1e-5
+
+# (m, n) of the shapes the main paths give the W pass: the headline, every
+# FoldInServer bucket against 10^4 features, lastfm, one word row.
+SHAPES = {
+    "headline": (10_000, 10_000),
+    **{f"bucket{rows}": (rows, 10_000) for rows in (64, 256, 1024, 4096, 8192)},
+    "lastfm": (1226, 285),
+    "one-word-row": (32, 40),
+}
+RANKS = (1, 4, 8, 17, 128, 256)
+
+
+# ------------------------------------------------------------------ planner
+@pytest.mark.parametrize("k", RANKS)
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
+def test_plan_covers_every_column_once_and_fills_the_card(shape, k):
+    _, Mp, Np = cs.plan_packing(*shape)
+    plan = cs.plan_w_split(Mp, Np, k, H100_SMS)
+    tiles = -(-Np // cs.W_TILE)
+    assert 1 <= plan.nsplit <= tiles
+    assert len(plan.chunks) == plan.nsplit
+    # contiguous, in order, from column 0 to Np, boundaries on whole tiles
+    assert plan.chunks[0][0] == 0 and plan.chunks[-1][1] == Np
+    for (b0, e0), (b1, _) in zip(plan.chunks, plan.chunks[1:]):
+        assert e0 == b1
+    for b, e in plan.chunks:
+        assert b < e and b % cs.W_TILE == 0
+        assert e % cs.W_TILE == 0 or e == Np
+    sizes = [-(-(e - b) // cs.W_TILE) for b, e in plan.chunks]
+    assert max(sizes) - min(sizes) <= 1
+    assert plan.scratch == (None if plan.nsplit == 1 else (plan.nsplit, k, Mp))
+    row_blocks = -(-Mp // cs.W_ROWS)
+    assert plan.blocks == row_blocks * plan.nsplit
+    slots = H100_SMS * cs.w_blocks_per_sm(k)
+    assert plan.waves == pytest.approx(plan.blocks / slots)
+    # about two waves: at least W_WAVES unless every chunk is one tile,
+    # and no more than twice the least split that reaches them
+    if plan.nsplit < tiles:
+        assert plan.waves >= cs.W_WAVES
+    s0 = min(tiles, -(-cs.W_WAVES * slots // row_blocks))
+    assert s0 <= plan.nsplit <= 2 * s0
+
+
+def test_plan_at_the_headline():
+    """10^4 x 10^4 at K=128 on 132 SMs: 160 row blocks, 8 chunks of 39 or 40
+    tiles, 1280 blocks (five rounds of 264 resident blocks, the last 85%
+    full)."""
+    plan = cs.plan_w_split(10_240, 10_000, 128, H100_SMS)
+    assert plan.nsplit == 8 and plan.blocks == 1280
+    assert plan.scratch == (8, 128, 10_240)
+    assert {e - b for b, e in plan.chunks[:-1]} <= {39 * 32, 40 * 32}
+
+
+def test_plan_scratch_of_two_output_forms():
+    plan = cs.plan_w_split(10_240, 10_240, 128, H100_SMS, n_out=2)
+    assert plan.scratch == (plan.nsplit, 256, 10_240)
+
+
+@pytest.mark.parametrize("nsplit", [0, 3])
+def test_column_chunks_rejects_more_chunks_than_tiles(nsplit):
+    with pytest.raises(ValueError):
+        cs.column_chunks(64, nsplit)  # two tiles
+
+
+# ------------------------------------------------ split against the JAX package
+def _split_sum(fn, H, Ys, n_real, chunks):
+    """Sum, in chunk order, of ``fn`` over each column chunk, given the
+    chunk's columns of H and of each operand and its shifted ``n_real``."""
+    parts = [fn(H[:, b:e], *[None if Y is None else Y[:, b:e] for Y in Ys], n_real - b)
+             for b, e in chunks]
+    if isinstance(parts[0], tuple):
+        return tuple(functools.reduce(torch.add, out) for out in zip(*parts))
+    return functools.reduce(torch.add, parts)
+
+
+def _rel(port, ref):
+    port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
+    return np.abs(port - ref).max() / np.abs(ref).max()
+
+
+def _factors(rng, k, m, n, Mp, Np):
+    W = np.zeros((k, Mp))
+    W[:, :m] = rng.uniform(0.1, 0.9, (k, m))
+    W[:, :m] /= W[:, :m].sum(axis=0, keepdims=True)
+    H = np.zeros((k, Np))
+    H[:, :n] = rng.uniform(0.1, 0.9, (k, n))
+    return W, H
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_case(mode):
+    """240 x 250 binary data at the port's padding (Mp 256, Np 252: the last
+    tile is 28 columns and n_real = 250 falls inside it), K=4, f64; the JAX
+    K2 in interpret mode."""
+    m, n, k = 240, 250, 4
+    bm, Mp, Np = cs.plan_packing(m, n)
+    rng = np.random.default_rng(21)
+    Y = (rng.random((m, n)) < 0.35).astype(np.float64)
+    mask = rng.random((m, n)) < 0.75
+    pad = lambda A: np.pad(A, ((0, Mp - m), (0, Np - n)))
+    words = cs.pack_bits_host(pad(Y if mode == "none" else Y * mask), bm)
+    words2 = None if mode == "none" else cs.pack_bits_host(pad((1 - Y) * mask), bm)
+    W, H = _factors(rng, k, m, n, Mp, Np)
+    ref = ps.w_terms_packed(jnp.asarray(W), jnp.asarray(H), jnp.asarray(words),
+                            None if words2 is None else jnp.asarray(words2), n_real=n, eps=EPS,
+                            block_m=bm, interpret=True)
+    return dict(W=W, H=H, words=words, words2=words2, bm=bm, n=n, ref=np.asarray(ref))
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_case(mode):
+    """240 x 250 [0,1]-valued data under a weighted mask, padded to the JAX
+    tiles (256 x 256), K=4, f64; the JAX w_terms in interpret mode."""
+    m, n, k, block = 240, 250, 4, 128
+    Mp = Np = 256
+    rng = np.random.default_rng(22)
+    Y = rng.random((m, n))
+    mask = (rng.random((m, n)) < 0.75) * np.where(rng.random((m, n)) < 0.3, 0.5, 1.0)
+    pad = lambda A: np.pad(A, ((0, Mp - m), (0, Np - n)))
+    Ym = pad(Y if mode == "none" else Y * mask)
+    Ym2 = None if mode == "none" else pad((1 - Y) * mask)
+    W, H = _factors(rng, k, m, n, Mp, Np)
+    ref = ps.w_terms(jnp.asarray(W), jnp.asarray(H), jnp.asarray(Ym),
+                     None if Ym2 is None else jnp.asarray(Ym2), n_real=n, eps=EPS,
+                     block_m=block, block_n=block, interpret=True)
+    return dict(W=W, H=H, Ym=Ym, Ym2=Ym2, bm=block, n=n, ref=np.asarray(ref))
+
+
+def _t(a):
+    return None if a is None else torch.tensor(a)
+
+
+@pytest.mark.parametrize("n_sm", [1, 4, H100_SMS])
+@pytest.mark.parametrize("mode", ["none", "parity", "corrected"])
+def test_split_w_terms_packed_matches_pallas(mode, n_sm):
+    c = _packed_case(mode)
+    W, H = _t(c["W"]), _t(c["H"])
+    plan = cs.plan_w_split(W.shape[1], H.shape[1], W.shape[0], n_sm)
+    fn = lambda Hc, words, words2, n_real: cs.w_terms_packed_plain(
+        W, Hc, words, words2, eps=EPS, n_real=n_real, bm=c["bm"])
+    T = _split_sum(fn, H, (_t(c["words"]), _t(c["words2"])), c["n"], plan.chunks)
+    if n_sm > 1:
+        assert plan.nsplit > 1
+    assert T.shape == c["ref"].shape
+    assert _rel(T, c["ref"]) <= TOL_F64
+
+
+@pytest.mark.parametrize("n_sm", [1, 4, H100_SMS])
+@pytest.mark.parametrize("mode", ["none", "parity", "corrected"])
+def test_split_w_terms_matches_pallas(mode, n_sm):
+    c = _dense_case(mode)
+    W, H = _t(c["W"]), _t(c["H"])
+    plan = cs.plan_w_split(W.shape[1], H.shape[1], W.shape[0], n_sm)
+    fn = lambda Hc, Ym, Ym2, n_real: ds.w_terms_plain(W, Hc, Ym, Ym2, eps=EPS, n_real=n_real)
+    T = _split_sum(fn, H, (_t(c["Ym"]), _t(c["Ym2"])), c["n"], plan.chunks)
+    if n_sm > 1:
+        assert plan.nsplit > 1
+    assert _rel(T, c["ref"]) <= TOL_F64
+
+
+def test_split_sums_chunks_in_order_to_the_unsplit_pass():
+    """On the port's ragged padding (Np = 252) the chunked plain pass equals
+    the unchunked one to f64 rounding, in every chunk count up to one tile
+    per chunk."""
+    c = _packed_case("parity")
+    W, H = _t(c["W"]), _t(c["H"])
+    words, words2 = _t(c["words"]), _t(c["words2"])
+    whole = cs.w_terms_packed_plain(W, H, words, words2, eps=EPS, n_real=c["n"], bm=c["bm"])
+    fn = lambda Hc, y, y2, n_real: cs.w_terms_packed_plain(W, Hc, y, y2, eps=EPS,
+                                                           n_real=n_real, bm=c["bm"])
+    for nsplit in range(1, 9):
+        T = _split_sum(fn, H, (words, words2), c["n"], cs.column_chunks(H.shape[1], nsplit))
+        assert _rel(T, whole) <= TOL_F64
+
+
+# ------------------------------------------- the probe forms on the split
+M, N, K, BM = 512, 640, 8, 256
+MXU = {"f32": (None, None), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture
+def interpret_x32(monkeypatch):
+    """Every pallas_call in interpret mode, and x64 off, for one test (the
+    tools/ probes take ``interpret=`` only in part)."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", x64)
+
+
+def _probe_problem(seed):
+    """The probe tests' draw: W on a 1/64 grid, H on a 1/16 grid, so WH is
+    exact in f32 whatever the order and bf16 operands agree."""
+    rng = np.random.default_rng(seed)
+    Y = (rng.random((M, N)) < 0.3).astype(np.float32)
+    W = (rng.integers(1, 8, (K, M)) / 64).astype(np.float32)
+    H = (rng.integers(2, 15, (K, N)) / 16).astype(np.float32)
+    return W, H, cs.pack_bits_host(Y, BM)
+
+
+def _close(port, ref):
+    port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
+    assert port.shape == ref.shape
+    assert np.abs(port - ref).max() <= TOL_PROBE * np.abs(ref).max()
+
+
+@pytest.mark.usefixtures("interpret_x32")
+@pytest.mark.parametrize("n_sm", [4, H100_SMS])
+@pytest.mark.parametrize("mxu", ["f32", "bf16"])
+@pytest.mark.parametrize("name, module", [("w_packed", bench_packed), ("w_packed2", bench_packed2)])
+def test_split_one_matmul_forms_match_the_tools_probes(name, module, mxu, n_sm):
+    W, H, Yp = _probe_problem(31)
+    n_real = N - 40
+    ref = getattr(module, name)(jnp.asarray(W), jnp.asarray(H), jnp.asarray(Yp), n_real=n_real,
+                                block_m=BM, mxu_dtype=MXU[mxu][0], interpret=True)
+    plan = cs.plan_w_split(M, N, K, n_sm)
+    assert plan.nsplit > 1
+    plain = getattr(pr, name + "_plain")
+    fn = lambda Hc, Ypc, n_r: plain(torch.tensor(W), Hc, Ypc, n_real=n_r, block_m=BM,
+                                    mxu_dtype=MXU[mxu][1])
+    _close(_split_sum(fn, torch.tensor(H), (torch.tensor(Yp),), n_real, plan.chunks), ref)
+
+
+@pytest.mark.usefixtures("interpret_x32")
+@pytest.mark.parametrize("n_sm", [4, H100_SMS])
+@pytest.mark.parametrize("mxu", ["f32", "bf16"])
+def test_split_chain3_tile_matches_the_tools_probe(mxu, n_sm):
+    W, H, _ = _probe_problem(32)
+    ref = bench_packed3.mxu_probe(jnp.asarray(W), jnp.asarray(H), variant="chain3_tile",
+                                  block_m=BM, mxu_dtype=MXU[mxu][0])
+    plan = cs.plan_w_split(M, N, K, n_sm, n_out=2)
+    assert plan.nsplit > 1 and plan.scratch == (plan.nsplit, 2 * K, M)
+    fn = lambda Hc, n_r: pr.mxu_probe_plain(torch.tensor(W), Hc, variant="chain3_tile",
+                                            block_m=BM, mxu_dtype=MXU[mxu][1])
+    got = _split_sum(fn, torch.tensor(H), (), N, plan.chunks)
+    for g, r in zip(got, ref):
+        _close(g, r)
+
+
+# ------------------------------------------------- the SASS comparison tool
+def test_sass_diff_parses_kernels_and_drops_path_tags():
+    from nbmf_mm_tpu_torch.tools.sass_diff import parse_sass
+
+    def dump(tag, pad):
+        return (f"\nFatbin elf code:\n================\narch = sm_90a\ncode for sm_90a\n"
+                f"\tFunction : _ZN41_GLOBAL__N__{tag}_9_probes_cu_6ccab7ce12hloss_kernelEv\n"
+                f"\t.headerflags @\"EF_CUDA_SM90\"\n"
+                f"        /*0000*/  MOV R1, c[0x0][0x28] ;{pad}/* 0x00000a00ff017624 */\n"
+                f"        ..........\n"
+                f"\tFunction : _ZN41_GLOBAL__N__{tag}_9_probes_cu_6ccab7ce8sum_partsEv\n"
+                f"        /*0000*/  EXIT ;\n")
+
+    a, b = parse_sass(dump("6b2d74c9", "  ")), parse_sass(dump("0badf00d", "     "))
+    assert a == b
+    assert set(a) == {"_ZN41_GLOBAL__N__probes_cu12hloss_kernelEv",
+                      "_ZN41_GLOBAL__N__probes_cu8sum_partsEv"}
+    assert "MOV R1" in a["_ZN41_GLOBAL__N__probes_cu12hloss_kernelEv"]
+
+
+def test_wpass_tune_variants_edit_the_current_source():
+    """The tuning tool's text edits still match the kernel source, and each
+    variant keeps its braces balanced."""
+    from nbmf_mm_tpu_torch.ops import _build
+    from nbmf_mm_tpu_torch.tools.wpass_tune import variants
+
+    header = (_build.CSRC / "sweep_kernels.cuh").read_text()
+    texts = variants(header)
+    assert set(texts) == {"production", "one_block", "phase_a_x2", "phase_b_x2"}
+    assert texts["production"] == header
+    for name, text in texts.items():
+        assert text.count("{") == text.count("}"), name
+        assert name == "production" or text != header
