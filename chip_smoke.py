@@ -5,8 +5,10 @@
 Builds the sweep kernels from ``nbmf_mm_tpu_torch/ops/csrc`` (one ``nvcc`` per
 source, started together) and checks each against its plain PyTorch version
 on the card: the bit-packed pair K1/K2 and the three dense kernels, which on
-binary data must equal K1/K2 bitwise, and the two W passes again at the
-shapes that hit their column split's edges.  Then it drives the port's three main
+binary data must equal K1/K2 bitwise, the two W passes again at the
+shapes that hit their column split's edges, and the four H passes (K1, the
+dense H pass, ``loglik_sum`` and ``h_terms``) at the shapes that hit their
+row split's edges.  Then it drives the port's three main
 paths through the entry points a user calls, each with the launch counters
 set to 0 just before and read just after:
 
@@ -21,7 +23,8 @@ set to 0 just before and read just after:
 It also checks packed against dense through ``solve``, runs masked and
 dir-beta fits and a fold-in on the lastfm matrix, and times the kernels, the
 two fused loops and the serving requests; each kernel's time is printed
-beside its bound (``FP32_PEAK``, ``HBM_RATE``).
+beside its bound (``FP32_PEAK``, ``HBM_RATE``); the H passes' share is
+printed against the 6 m n k flops they do and the reference's 8 m n k.
 
 Phase 7 is the measurement path (``nbmf_mm_tpu_torch/tools/``): ``h_terms``
 and every variant of the ten probe kernels against their plain versions at
@@ -69,8 +72,11 @@ TOL_FOLD_IN = 1e-4
 # A kernel's bound: the larger of its operations at the fp32 CUDA-core peak and
 # its bytes (each input read once, each output written once) at the HBM rate,
 # from NVIDIA's H100 SXM data sheet (at the 700 W limit).  Operations are the
-# reference's cost estimates (pallas_sweep.py, the tools/ probes), or one add
-# per element for the reductions, over this run's shapes.
+# flops each function does: 6 m n k for the H and W passes (three m n k
+# products each; the reference estimates its H passes at 8 m n k,
+# pallas_sweep.py:321, and h_terms at 6, :192), 2 m n k for loglik_sum, the
+# tools/ probes' own counts for the W probes and the matmul chains, or one
+# add per element for the reductions, over this run's shapes.
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
 # Phase 3's edge shapes of the W pass's column split (label, (m, n), k): the
@@ -81,6 +87,15 @@ W_EDGES = (("serving chunk 8192", (8_192, 10_000), 128),
            ("serving chunk 64", (64, 10_000), 128),
            *((f"ragged k={k}", (1_000, 1_234), k) for k in (1, 17, 33, 200, 256)),
            ("single stripe bm=32", (20, 1_000), 8))
+# Phase 3's edge shapes of the H pass's row split (label, (m, n), k): ranks
+# across every instance at n neither a multiple of the 64-column block nor
+# of 4 (n_real inside the last block) and m_real inside the last word rows
+# (chunks of one or two word rows, boundaries inside the stripes of
+# bm = 256), one word row (bm = 32, m_real inside it), and bm = Mp (one
+# stripe of seven word rows, as the hloss_ngrid probes walk it).
+H_EDGES = (*((f"ragged k={k}", (1_000, 1_234), k) for k in (1, 17, 33, 200, 256)),
+           ("one word row bm=32", (20, 1_000), 8),
+           ("one stripe bm=Mp", (200, 1_000), 8))
 # The JAX reference package is named as the port without its "_torch".
 SWEEP = "nbmf_mm_tpu_torch".removesuffix("_torch") + "/ops/pallas_sweep.py"
 # name: (source, file:line of the TPU kernel it replaces).  The kernels of
@@ -109,6 +124,9 @@ MEASUREMENT_KERNELS = {
     "frag_kernel": ("probes.cu", "tools/bench_vpu.py:32"),
 }
 KERNELS = {**PATH_KERNELS, **MEASUREMENT_KERNELS}
+# Kernels whose every variant the kernels line lists (make_kernel's three
+# kinds are three different functions).
+VARIANT_KERNELS = ("make_kernel",)
 # The measurement path's scripts, driven through their entry points.
 TOOLS = ("bench_kernels", "bench_true", "bench_packed", "bench_packed2", "bench_packed3",
          "bench_diag", "bench_stream", "bench_vpu")
@@ -274,9 +292,10 @@ def abs_err(a, b) -> float:
 
 
 def check_dense_kernels(name, Y, k, card, cs, ds, errors):
-    """The three dense kernels against their plain versions in all three
+    """The four dense kernels against their plain versions in all three
     mask modes (weighted masks), each launched twice for bitwise
-    repeatability; loglik_sum's ll equals the H pass's bitwise."""
+    repeatability; loglik_sum's ll and h_terms' Num/Den equal the H pass's
+    bitwise."""
     for mode in MODES:
         o = operands(Y, k, mode, 5, cs, weighted=True)
         kw_h = dict(eps=EPS, m_real=o["m"], n_real=o["n"])
@@ -284,30 +303,37 @@ def check_dense_kernels(name, Y, k, card, cs, ds, errors):
         h = lambda: ds.hloss_terms(o["W"], o["H"], o["Ym"], o["Yc"], bm=o["bm"], **kw_h)
         w = lambda: ds.w_terms(o["W"], o["H"], o["Ym"], o["Ym2"], bm=o["bm"], **kw_w)
         s = lambda: ds.loglik_sum(o["W"], o["H"], o["Ym"], o["Yc"], bm=o["bm"], **kw_h)
+        t = lambda: ds.h_terms(o["W"], o["H"], o["Ym"], o["Yc"], eps=EPS, bm=o["bm"])
         (num, den, ll), (num2, den2, ll2) = h(), h()
         T, T2 = w(), w()
         lls, lls2 = s(), s()
+        (hn, hd), (hn2, hd2) = t(), t()
         torch.cuda.synchronize()
         pnum, pden, pll = ds.hloss_terms_plain(o["W"], o["H"], o["Ym"], o["Yc"], **kw_h)
         pT = ds.w_terms_plain(o["W"], o["H"], o["Ym"], o["Ym2"], **kw_w)
         plls = ds.loglik_sum_plain(o["W"], o["H"], o["Ym"], o["Yc"], **kw_h)
         e = dict(num=rel(num, pnum), den=rel(den, pden), T=rel(T, pT), ll=rel_ll(ll, pll),
-                 loglik=rel_ll(lls, plls))
+                 loglik=rel_ll(lls, plls), h_terms=max(rel(hn, pnum), rel(hd, pden)))
         errors["hloss_terms"] = max(errors["hloss_terms"], abs_err(num, pnum),
                                     abs_err(den, pden), abs_err(ll, pll))
         errors["w_terms"] = max(errors["w_terms"], abs_err(T, pT))
         errors["loglik_sum"] = max(errors["loglik_sum"], abs_err(lls, plls))
-        repeat = all(map(torch.equal, (num, den, ll, T, lls), (num2, den2, ll2, T2, lls2)))
+        errors["h_terms"] = max(errors["h_terms"], abs_err(hn, pnum), abs_err(hd, pden))
+        repeat = all(map(torch.equal, (num, den, ll, T, lls, hn, hd),
+                         (num2, den2, ll2, T2, lls2, hn2, hd2)))
         same_ll = torch.equal(lls, ll)
+        same_terms = torch.equal(hn, num) and torch.equal(hd, den)
         print(f"dense kernels {name} {mode} k={k}: rel err num {e['num']:.3e} den "
-              f"{e['den']:.3e} T {e['T']:.3e} (bound {TOL_TERMS:g} of max|plain|), ll "
-              f"{e['ll']:.3e} loglik_sum {e['loglik']:.3e} (bound {TOL_LL:g}); bitwise repeat "
-              f"{repeat}; loglik_sum == H-pass ll bitwise {same_ll} [{card}]", flush=True)
-        check(max(e["num"], e["den"], e["T"]) <= TOL_TERMS
+              f"{e['den']:.3e} T {e['T']:.3e} h_terms {e['h_terms']:.3e} (bound {TOL_TERMS:g} "
+              f"of max|plain|), ll {e['ll']:.3e} loglik_sum {e['loglik']:.3e} (bound "
+              f"{TOL_LL:g}); bitwise repeat {repeat}; loglik_sum == H-pass ll bitwise {same_ll}; "
+              f"h_terms == H-pass Num/Den bitwise {same_terms} [{card}]", flush=True)
+        check(max(e["num"], e["den"], e["T"], e["h_terms"]) <= TOL_TERMS
               and max(e["ll"], e["loglik"]) <= TOL_LL,
               f"{name} {mode}: dense kernel disagrees with plain {e}")
         check(repeat, f"{name} {mode}: dense kernel outputs differ between two launches")
         check(same_ll, f"{name} {mode}: loglik_sum differs from the H pass's ll")
+        check(same_terms, f"{name} {mode}: h_terms differs from the H pass's Num/Den")
 
 
 def check_dense_equals_packed(name, Y, k, card, cs, ds):
@@ -367,6 +393,65 @@ def check_wpass_edges(card, cs, ds, errors):
         check(worst <= TOL_TERMS, f"W pass {label}: kernel disagrees with plain")
         check(repeat, f"W pass {label}: outputs differ between two launches")
         check(same, f"W pass {label}: dense differs from packed")
+
+
+def check_hpass_edges(card, cs, ds, errors):
+    """The four H passes at the shapes that hit the row split's edges
+    (H_EDGES): K1 and the dense pass on binary data, the dense passes again
+    on [0,1] data under a weighted mask, against their plain versions in all
+    three mask modes, each launched twice for bitwise repeatability; dense
+    == packed, loglik_sum's ll == the H pass's and h_terms' Num/Den == the H
+    pass's, bitwise."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    inside = []
+    for label, (m, n), k in H_EDGES:
+        rng = np.random.default_rng(m + n + k)
+        Y = (rng.random((m, n)) < 0.3).astype(np.float32)
+        soft = rng.random((m, n)).astype(np.float32)
+        bm, Mp, Np = cs.plan_packing(m, n)
+        plan = cs.plan_h_split(Mp, Np, k, n_sm)
+        inside.append(any(b % (bm // 32) for b, _ in plan.chunks))
+        worst = worst_ll = 0.0
+        repeat = same = True
+        for mode in MODES:
+            for o, binary in ((operands(Y, k, mode, 10, cs), True),
+                              (operands(soft, k, mode, 11, cs, weighted=True), False)):
+                kw = dict(eps=EPS, m_real=m, n_real=n, bm=bm)
+                args = (o["W"], o["H"], o["Ym"], o["Yc"])
+                runs = {"hloss_terms": lambda: ds.hloss_terms(*args, **kw),
+                        "loglik_sum": lambda: (ds.loglik_sum(*args, **kw),),
+                        "h_terms": lambda: ds.h_terms(*args, eps=EPS, bm=bm)}
+                if binary:
+                    runs["hloss_terms_packed"] = lambda: cs.hloss_terms_packed(
+                        o["W"], o["H"], o["words"], o["words2_h"], **kw)
+                got = {name: (fn(), fn()) for name, fn in runs.items()}
+                torch.cuda.synchronize()
+                pnum, pden, pll = ds.hloss_terms_plain(*args, eps=EPS, m_real=m, n_real=n)
+                want = {"hloss_terms": (pnum, pden, pll), "loglik_sum": (pll,),
+                        "h_terms": (pnum, pden), "hloss_terms_packed": (pnum, pden, pll)}
+                for name, (out, again) in got.items():
+                    for g, w in zip(out, want[name]):
+                        if g.numel() == 1:
+                            worst_ll = max(worst_ll, rel_ll(g, w))
+                        else:
+                            worst = max(worst, rel(g, w))
+                        errors[name] = max(errors[name], abs_err(g, w))
+                    repeat &= all(map(torch.equal, out, again))
+                h = got["hloss_terms"][0]
+                same &= torch.equal(got["loglik_sum"][0][0], h[2])
+                same &= all(map(torch.equal, got["h_terms"][0], h[:2]))
+                if binary:
+                    same &= all(map(torch.equal, got["hloss_terms_packed"][0], h))
+        print(f"H pass {label} {m}x{n} k={k} (Mp {Mp}, Np {Np}, bm {bm}; {plan.nsplit} row "
+              f"chunks, {plan.blocks} blocks, a chunk boundary inside a stripe {inside[-1]}): "
+              f"K1, dense H, loglik_sum, h_terms (binary, weighted [0,1]) in {'/'.join(MODES)}: "
+              f"max rel err {worst:.3e} (bound {TOL_TERMS:g} of max|plain|), ll {worst_ll:.3e} "
+              f"(bound {TOL_LL:g}); bitwise repeat {repeat}; dense == packed, loglik_sum == ll, "
+              f"h_terms == Num/Den bitwise {same} [{card}]", flush=True)
+        check(worst <= TOL_TERMS and worst_ll <= TOL_LL, f"H pass {label}: kernel disagrees")
+        check(repeat, f"H pass {label}: outputs differ between two launches")
+        check(same, f"H pass {label}: a bitwise equality of the H passes failed")
+    check(any(inside), "no H_EDGES shape puts a row-chunk boundary inside a stripe")
 
 
 def check_fit(name, est, losses, card):
@@ -536,7 +621,7 @@ def time_kernels(X, P, k, card, cs, ds):
         "hloss_terms_packed": (
             lambda: cs.hloss_terms_packed(W, H, words, bm=bm, **kw1),
             lambda: cs.hloss_terms_packed_plain(W, H, words, bm=bm, **kw1),
-            8 * mnk, factors_b + tensor_bytes(words) + num_den_b + 4),
+            6 * mnk, factors_b + tensor_bytes(words) + num_den_b + 4),
         "w_terms_packed": (
             lambda: cs.w_terms_packed(W, H, words, bm=bm, **kw2),
             lambda: cs.w_terms_packed_plain(W, H, words, bm=bm, **kw2),
@@ -544,7 +629,7 @@ def time_kernels(X, P, k, card, cs, ds):
         "hloss_terms": (
             lambda: ds.hloss_terms(W, H, Ym, bm=bm, **kw1),
             lambda: ds.hloss_terms_plain(W, H, Ym, **kw1),
-            8 * mnk, factors_b + tensor_bytes(Ym) + num_den_b + 4),
+            6 * mnk, factors_b + tensor_bytes(Ym) + num_den_b + 4),
         "w_terms": (
             lambda: ds.w_terms(W, H, Ym, bm=bm, **kw2),
             lambda: ds.w_terms_plain(W, H, Ym, **kw2),
@@ -560,10 +645,13 @@ def time_kernels(X, P, k, card, cs, ds):
         bound_ms, bound_by = bound(flops, nbytes)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=None)
+        # The H passes also against the reference's estimate, 8 m n k.
+        ref = (f"; {100 * bound(8 * mnk, nbytes)[0] / ms:.1f}% of the reference's 8 m n k "
+               f"bound" if name in ("hloss_terms_packed", "hloss_terms") else "")
         print(f"timing {name} at {m}x{n} k={k}: kernel {ms:.4f} ms/call, plain {plain_ms:.4f} "
-              f"ms/call; {flops / ms / 1e9:.2f} TFLOP/s by the reference's count, "
-              f"{100 * bound_ms / ms:.1f}% of its {bound_ms:.4f} ms bound ({bound_by}) [{card}]",
-              flush=True)
+              f"ms/call; {flops / ms / 1e9:.2f} TFLOP/s by the flops it does, "
+              f"{100 * bound_ms / ms:.1f}% of its {bound_ms:.4f} ms bound ({bound_by}){ref} "
+              f"[{card}]", flush=True)
     del o, d, W, H, words, Ym
 
     rows = SERVE_BUCKETS[-1]
@@ -673,8 +761,8 @@ def probe_cases(m, n, k, cs, ds, pr):
             library=partial(torch.sum, Y, dim=0, dtype=torch.float64) if kind == "hbm_only"
             else None)
     for mxu, label in ((None, "f32"), (torch.bfloat16, "bf16")):
-        for name, flops, extra in (("hloss_packed", 8, {}), ("w_packed", 4, {"n_real": n}),
-                                   ("hloss_packed2", 8, {}), ("w_packed2", 4, {"n_real": n})):
+        for name, flops, extra in (("hloss_packed", 6, {}), ("w_packed", 4, {"n_real": n}),
+                                   ("hloss_packed2", 6, {}), ("w_packed2", 4, {"n_real": n})):
             add(name, label, partial(getattr(pr, name), W, H, Yp, mxu_dtype=mxu, **extra),
                 partial(getattr(pr, name + "_plain"), W, H, Yp, mxu_dtype=mxu, **extra),
                 flops * mnk)
@@ -690,7 +778,7 @@ def probe_cases(m, n, k, cs, ds, pr):
             kw = dict(block_n=block_n, packed=packed, mxu_dtype=mxu)
             add("hloss_ngrid", f"{'packed' if packed else 'dense'} {label}",
                 partial(pr.hloss_ngrid, W, H, data, **kw),
-                partial(pr.hloss_ngrid_plain, W, H, data, **kw), 8 * mnk)
+                partial(pr.hloss_ngrid_plain, W, H, data, **kw), 6 * mnk)
     stream = ([(256, n, "f32"), (128, 128, "f32"), (256, n, "bf16")] if small
               else configs(n))
     for bm, bn, dt in stream:
@@ -761,8 +849,11 @@ def check_probes(m, n, k, card, cs, ds, pr, errors, *, timed):
         bound_ms, bound_by = bound(flops or operand.numel(),
                                    tensor_bytes(*fn.args) + tensor_bytes(*outs[(name, label)]))
         library_ms = cuda_ms(library) if library is not None else None
-        times.setdefault(name, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, library_ms=library_ms))
+        entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms)
+        times.setdefault(name, dict(entry))
+        if name in VARIANT_KERNELS:  # every variant in the kernels line, too
+            times[name].setdefault("variants", {})[label] = entry
         rate = f", {flops / ms / 1e9:.2f} TFLOP/s by the tool's count" if flops else ""
         rate += f", {nbytes / ms / 1e6:.1f} GB/s" if nbytes else ""
         lib = f", library {library_ms:.4f} ms/call" if library_ms is not None else ""
@@ -843,6 +934,7 @@ def main() -> None:
     check_dense_equals_packed("headline", X, HEADLINE["k"], card, cs, ds)
     check_dense_equals_packed("lastfm", lastfm, 8, card, cs, ds)
     check_wpass_edges(card, cs, ds, errors)
+    check_hpass_edges(card, cs, ds, errors)
 
     # ------------------------------------------------------ 4. main paths
     # Launches per kernel, summed over the three main-path runs.

@@ -244,12 +244,12 @@ cudaError_t dispatch_reduce(int dtype, int frag, const void* x, double* part1, d
 #define NBMF_PROBE_H(NAME, Y, LOSS, POLICY)                                                      \
     extern "C" int NAME(const float* W, const float* H, const Y* y, const Y* y2, float* num,    \
                         float* den, float* num_part, float* den_part, double* ll_part,         \
-                        float* ll, int k, int Mp, int Np, int bm, int m_real, int n_real,      \
-                        int rows_per_split, float eps, int device, void* stream) {             \
+                        float* ll, float* wperm, int k, int Mp, int Np, int bm, int m_real,    \
+                        int n_real, int nsplit, float eps, int device, void* stream) {         \
         if (y2 != nullptr) return (int)cudaErrorInvalidValue;                                  \
         return run_hloss_as<false, Y, true, LOSS, POLICY>(                                     \
-            W, H, y, nullptr, num, den, num_part, den_part, ll_part, ll, k, Mp, Np, bm,        \
-            m_real, n_real, rows_per_split, eps, device, stream);                              \
+            W, H, y, nullptr, num, den, num_part, den_part, ll_part, ll, wperm, k, Mp, Np, bm, \
+            m_real, n_real, nsplit, eps, device, stream);                                      \
     }
 
 NBMF_PROBE_H(nbmf_probe_hloss_product, int32_t, true, ProductF32)

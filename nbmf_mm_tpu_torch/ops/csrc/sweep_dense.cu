@@ -26,15 +26,15 @@
 
 extern "C" {
 
-// Num/Den (k, Np), ll (scalar); scratch as nbmf_hloss_terms_packed.
+// Num/Den (k, Np), ll (scalar); scratch and alignment as
+// nbmf_hloss_terms_packed.
 int nbmf_hloss_terms_dense(const float* W, const float* H, const float* Ym, const float* Yc,
                            float* num, float* den, float* num_part, float* den_part,
-                           double* ll_part, float* ll, int k, int Mp, int Np, int bm, int m_real,
-                           int n_real, int rows_per_split, float eps, int device,
+                           double* ll_part, float* ll, float* wperm, int k, int Mp, int Np, int bm,
+                           int m_real, int n_real, int nsplit, float eps, int device,
                            void* stream_ptr) {
-    return run_hloss<float, true>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part, ll, k,
-                                  Mp, Np, bm, m_real, n_real, rows_per_split, eps, device,
-                                  stream_ptr);
+    return run_hloss<float, true>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part, ll, wperm,
+                                  k, Mp, Np, bm, m_real, n_real, nsplit, eps, device, stream_ptr);
 }
 
 // Num/Den (k, Np) alone (h_terms): the instance above with the logs and the
@@ -43,10 +43,10 @@ int nbmf_hloss_terms_dense(const float* W, const float* H, const float* Ym, cons
 // and n_real are not read.
 int nbmf_h_terms_dense(const float* W, const float* H, const float* Ym, const float* Yc,
                        float* num, float* den, float* num_part, float* den_part, double* ll_part,
-                       float* ll, int k, int Mp, int Np, int bm, int m_real, int n_real,
-                       int rows_per_split, float eps, int device, void* stream_ptr) {
-    return run_hloss<float, true, false>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part,
-                                         ll, k, Mp, Np, bm, m_real, n_real, rows_per_split, eps,
+                       float* ll, float* wperm, int k, int Mp, int Np, int bm, int m_real,
+                       int n_real, int nsplit, float eps, int device, void* stream_ptr) {
+    return run_hloss<float, true, false>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part, ll,
+                                         wperm, k, Mp, Np, bm, m_real, n_real, nsplit, eps,
                                          device, stream_ptr);
 }
 
@@ -59,14 +59,15 @@ int nbmf_w_terms_dense(const float* W, const float* H, const float* Ym, const fl
                              stream_ptr);
 }
 
-// ll (scalar) of the current (W, H) over the real region; ll_part holds
-// ceil(Np/32) * ceil((Mp/32) / rows_per_split) doubles.
+// ll (scalar) of the current (W, H) over the real region, on the H pass's
+// grid of nsplit word-row chunks; ll_part holds ceil(Np/64) * nsplit
+// doubles, wperm is (k, Mp) scratch.
 int nbmf_loglik_sum_dense(const float* W, const float* H, const float* Ym, const float* Yc,
-                          double* ll_part, float* ll, int k, int Mp, int Np, int bm, int m_real,
-                          int n_real, int rows_per_split, float eps, int device,
+                          double* ll_part, float* ll, float* wperm, int k, int Mp, int Np, int bm,
+                          int m_real, int n_real, int nsplit, float eps, int device,
                           void* stream_ptr) {
     return run_hloss<float, false>(W, H, Ym, Yc, nullptr, nullptr, nullptr, nullptr, ll_part, ll,
-                                   k, Mp, Np, bm, m_real, n_real, rows_per_split, eps, device,
+                                   wperm, k, Mp, Np, bm, m_real, n_real, nsplit, eps, device,
                                    stream_ptr);
 }
 

@@ -3,7 +3,7 @@
 // (sweep_dense.cu).
 //
 // Two passes per sweep, each templated on its operand type Y:
-//   hloss_kernel  Num = W.P, Den = W.Q (k, Np) and the Bernoulli
+//   hpass_kernel  Num = W.P, Den = W.Q (k, Np) and the Bernoulli
 //                 log-likelihood ll of the current (W, H); with TERMS=false
 //                 only ll (the loglik_sum pass);
 //   wpass_kernel  T = H.P^T + (1-H).Q^T (k, Mp) with the new H.
@@ -24,14 +24,40 @@
 // pallas_sweep.py::pack_bits): word row w = j*bmw + i, bit b holds data row
 // j*bm + b*bmw + i, bmw = bm/32.
 //
-// What bounds them on an H100: at m = n = 1e4, k = 128 the H pass does
-// ~8 m n k = 1.0e11 flops (the W pass 6 m n k = 7.7e10) against 12.5 MB of
-// words or 400 MB of dense f32 (0.12 ms of HBM time at 3.35 TB/s), so both
-// are bound by fp32 arithmetic, not by device memory: 1.53 ms and 1.15 ms at
-// the 67 TFLOP/s fp32 CUDA-core peak.  The H pass stages a (k x 32) slice of
-// W and a (k x 32) tile of H in shared memory, forms the 32 x 32 tile of WH,
-// p and q there, and folds it into per-thread fp32 register accumulators;
-// dense operands are read with plain loads coalesced along the column tile.
+// What bounds them on an H100: at m = n = 1e4, k = 128 each pass forms
+// three m x n x k products, 3 m n k FMAs = 6 m n k = 7.7e10 flops (the H
+// pass WH, W.P and W.Q; the W pass WH, H.P^T and (1-H).Q^T), against
+// 12.5 MB of words or 400 MB of dense f32 (0.12 ms of HBM time at
+// 3.35 TB/s), so both are bound by fp32 arithmetic, not by device memory:
+// 1.146 ms each at the 67 TFLOP/s fp32 CUDA-core peak.  (The reference's
+// cost estimate for the H pass, 8 m n k at pallas_sweep.py:321, counts
+// work the pass does not do; its h_terms estimate, :192, counts 6 m n k.)
+//
+// The H pass (hpass_kernel) replaces the TPU kernels hloss_terms_packed
+// (pallas_sweep.py:843), hloss_terms (:212), hloss_terms_stripe (:546),
+// loglik_sum (:444) and h_terms (:122).  It is the mirror image of the W
+// pass, designed against what held back the first port of it (one 32 x 32
+// tile per word row, 27% of its bound):
+//   - FMAs per shared load: register micro-tiles for both products with
+//     16-byte shared loads.  Phase A (the 32 x 64 WH tile, 4 rows x 2
+//     columns a thread) issues 6 loads per 32 FMAs where the first port
+//     issued 5 per 4; phase B (Num/Den, 8 k rows x 4 columns a thread, one
+//     float4 of W feeding both sums) 16 loads per 256 FMAs where it issued
+//     18 per 32;
+//   - the strided W gather: a (k, Mp) copy of W in bit-plane order (column
+//     32 w + b holds data row b of word row w), made once per call by a
+//     small kernel, so each step's W slice is 8 contiguous 16-byte runs per
+//     k row for every stripe bm from 32 to Mp (bf16 rounding, where a probe
+//     asks for it, is folded into the copy);
+//   - stalls on loads: the next step's W slice and operand tile arrive by
+//     cp.async into a second buffer while the current step accumulates; one
+//     barrier per phase, two per word row;
+//   - filling the card: 64-column blocks times S chunks of whole word rows,
+//     S planned on the host (cuda_sweep.plan_h_split) for at least two
+//     rounds of resident blocks, the S partials added in a fixed order by a
+//     second kernel;
+//   - registers: __launch_bounds__ keeps two 256-thread blocks on an SM up
+//     to k = 128 (one above), for every instance, h_terms included.
 //
 // The W pass (wpass_kernel) replaces the TPU kernels w_terms_packed
 // (pallas_sweep.py:947), w_terms (:333) and w_terms_stripe (:650), and is
@@ -108,215 +134,6 @@ __device__ __forceinline__ float mxu_operand(float x) {
 }
 
 constexpr int kThreads = 256;
-constexpr int kGroups = kThreads / 32;  // warps per block
-constexpr int kTile = 32;               // columns per tile == data rows per word row
-constexpr int kPitch = kTile + 1;       // padded shared-memory row: no bank conflicts
-
-// Shared memory layout common to both passes, in floats:
-//   Ws [kpad][32]  W at the 32 data rows of the current word row
-//   Hs [kpad][32]  H at the current 32 columns
-//   Ps, Qs [32][33] p and q of the current 32 x 32 tile (row = data row)
-// kpad = 8 * KPT >= k; rows k..kpad-1 of Ws and Hs are zero.
-__host__ __device__ inline size_t smem_bytes(int kpad) {
-    return sizeof(float) * (size_t)(2 * kpad * kTile + 2 * kTile * kPitch);
-}
-
-// Stage W[:, rows of word row w] into Ws (zero beyond k).
-template <bool BF16 = false>
-__device__ inline void load_w_slice(float* Ws, const float* __restrict__ W, int k, int kpad,
-                                    int Mp, int row0, int bmw) {
-    for (int e = threadIdx.x; e < kpad * kTile; e += kThreads) {
-        const int kk = e / kTile, r = e % kTile;
-        Ws[e] = mxu_operand<BF16>(kk < k ? W[(size_t)kk * Mp + row0 + r * bmw] : 0.f);
-    }
-}
-
-// Stage H[:, c0:c0+32] into Hs (zero beyond k and beyond Np).
-template <bool BF16 = false>
-__device__ inline void load_h_tile(float* Hs, const float* __restrict__ H, int k, int kpad,
-                                   int Np, int c0) {
-    for (int e = threadIdx.x; e < kpad * kTile; e += kThreads) {
-        const int kk = e / kTile, c = e % kTile;
-        Hs[e] = mxu_operand<BF16>((kk < k && c0 + c < Np) ? H[(size_t)kk * Np + c0 + c] : 0.f);
-    }
-}
-
-// WH for the 4 data rows r = g + 8 q (q < 4) of this thread at column `lane`.
-__device__ inline void tile_wh(float wh[4], const float* Ws, const float* Hs, int k, int g,
-                               int lane) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) wh[q] = 0.f;
-    for (int kk = 0; kk < k; ++kk) {
-        const float h = Hs[kk * kTile + lane];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) wh[q] = fmaf(Ws[kk * kTile + g + 8 * q], h, wh[q]);
-    }
-}
-
-// Dense loader: the operand at the 4 data rows r = g + 8 q of this thread
-// (data row row0 + r * bmw) and column col; 0 outside the columns.
-__device__ inline void load_dense(float v[4], const float* __restrict__ Y, int row0, int bmw,
-                                  int g, int Np, int col, bool col_in) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-        v[q] = col_in ? Y[(size_t)(row0 + (g + 8 * q) * bmw) * Np + col] : 0.f;
-}
-
-// ------------------------------------------------------------ H pass
-// Grid (ceil(Np/32), nsplit).  Block (x, y) owns columns [32x, 32x+32) and
-// word rows [y*rows_per_split, ...).  Thread t = 32 g + lane holds Num/Den
-// for rows kk = g + 8 i (i < KPT) of column lane in registers.  SECOND: an
-// explicit second operand (corrected mode's Yc); otherwise yc = 1 - ym.
-// LOSS=false compiles the logs and the ll partials out (h_terms); E is the
-// per-entry policy (Sweep above).
-template <int KPT, bool SECOND, typename Y, bool TERMS, bool LOSS = true, class E = Sweep>
-__global__ void __launch_bounds__(kThreads)
-hloss_kernel(const float* __restrict__ W, const float* __restrict__ H,
-             const Y* __restrict__ y, const Y* __restrict__ y2,
-             float* __restrict__ num_out, float* __restrict__ den_out,
-             double* __restrict__ ll_part, int k, int Mp, int Np, int bm, int m_real,
-             int n_real, int rows_per_split, float eps) {
-    constexpr bool kDense = std::is_same<Y, float>::value;
-    // Identity forms 1 and 3 read no data operand.
-    constexpr bool kReads = E::kIdentity == 0 || E::kIdentity == 2;
-    extern __shared__ float smem[];
-    constexpr int kpad = 8 * KPT;
-    float* Ws = smem;
-    float* Hs = Ws + kpad * kTile;
-    float* Ps = Hs + kpad * kTile;
-    float* Qs = Ps + kTile * kPitch;
-    __shared__ double ll_warp[kGroups];
-
-    const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-    const int c0 = blockIdx.x * kTile, col = c0 + lane;
-    const bool col_in = col < Np;
-    const int bmw = bm / 32, Mw = Mp / 32;
-    const int w_begin = blockIdx.y * rows_per_split;
-    const int w_end = min(Mw, w_begin + rows_per_split);
-
-    load_h_tile<E::kBf16>(Hs, H, k, kpad, Np, c0);
-
-    float num[KPT], den[KPT];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) num[i] = den[i] = 0.f;
-    double ll = 0.0;
-
-    for (int w = w_begin; w < w_end; ++w) {
-        const int j = w / bmw, i0 = w - j * bmw;
-        const int row0 = j * bm + i0;  // data row of bit 0; bit b is row0 + b*bmw
-        __syncthreads();               // the previous tile's readers are done
-        load_w_slice<E::kBf16>(Ws, W, k, kpad, Mp, row0, bmw);
-        __syncthreads();
-
-        uint32_t word = 0u, word2 = 0u;
-        float ym[4], yc[4];
-        if constexpr (kDense && kReads) {
-            load_dense(ym, y, row0, bmw, g, Np, col, col_in);
-            if constexpr (SECOND) load_dense(yc, y2, row0, bmw, g, Np, col, col_in);
-        } else if constexpr (!kDense) {
-            word = col_in ? (uint32_t)y[(size_t)w * Np + col] : 0u;
-            word2 = (SECOND && col_in) ? (uint32_t)y2[(size_t)w * Np + col] : 0u;
-        }
-        float wh[4];
-        tile_wh(wh, Ws, Hs, k, g, lane);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const int r = g + 8 * q;
-            float p, qv;
-            if constexpr (E::kIdentity != 0) {
-                if constexpr (E::kIdentity == 1) {
-                    p = wh[q];
-                    qv = wh[q] + 1.f;
-                } else if constexpr (E::kIdentity == 2) {
-                    p = wh[q] + ym[q];
-                    qv = wh[q] - ym[q];
-                } else {
-                    // o2 sums o1 after each stripe: weight stripe j's rounded
-                    // WH by S - j, exactly (8 significant bits times S < 2^16).
-                    p = mxu_operand<E::kBf16>(wh[q]);
-                    qv = (float)(Mp / bm - j) * p;
-                }
-            } else {
-                const float a = wh[q] + eps;
-                const float b = (E::kClampB ? fmaxf(1.f - wh[q], 0.f) : 1.f - wh[q]) + eps;
-                const float rr = 1.f / (a * b);
-                const bool in_region = row0 + r * bmw < m_real && col < n_real;
-                if constexpr (kDense) {
-                    const float c = SECOND ? yc[q] : 1.f - ym[q];
-                    p = ym[q] * (b * rr);
-                    qv = c * (a * rr);
-                    // Explicit fmaf: one rounding, the same in every instance.
-                    if (LOSS && in_region) ll += (double)fmaf(ym[q], logf(a), c * logf(b));
-                } else if constexpr (E::kSelect) {
-                    const bool bit = (word >> r) & 1u;
-                    p = bit ? b * rr : 0.f;
-                    float sel;
-                    if (SECOND) {
-                        const bool bit2 = (word2 >> r) & 1u;
-                        qv = bit2 ? a * rr : 0.f;
-                        sel = bit ? a : (bit2 ? b : 1.f);
-                    } else {
-                        qv = bit ? 0.f : a * rr;
-                        sel = bit ? a : b;
-                    }
-                    if (LOSS && in_region) ll += (double)logf(sel);
-                } else {
-                    // ym unpacked to a float; the products and both logs
-                    // give the select form's values bitwise (1*x = x, 0*x + y = y).
-                    static_assert(!SECOND, "the product form takes one operand");
-                    const float ymf = (float)((word >> r) & 1u);
-                    const float c = 1.f - ymf;
-                    p = ymf * (b * rr);
-                    qv = c * (a * rr);
-                    if (LOSS && in_region) ll += (double)fmaf(ymf, logf(a), c * logf(b));
-                }
-            }
-            if (!col_in) p = qv = 0.f;
-            if constexpr (TERMS) {
-                Ps[r * kPitch + lane] = mxu_operand<E::kBf16>(p);
-                Qs[r * kPitch + lane] = mxu_operand<E::kBf16 && E::kIdentity != 3>(qv);
-            }
-        }
-        if constexpr (TERMS) {
-            __syncthreads();
-            for (int r = 0; r < kTile; ++r) {
-                const float p = Ps[r * kPitch + lane];
-                const float qv = Qs[r * kPitch + lane];
-#pragma unroll
-                for (int i = 0; i < KPT; ++i) {
-                    const float wv = Ws[(g + 8 * i) * kTile + r];
-                    num[i] = fmaf(wv, p, num[i]);
-                    den[i] = fmaf(wv, qv, den[i]);
-                }
-            }
-        }
-    }
-
-    if (TERMS && col_in) {
-        const size_t base = (size_t)blockIdx.y * k * Np;
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-            const int kk = g + 8 * i;
-            if (kk < k) {
-                num_out[base + (size_t)kk * Np + col] = num[i];
-                den_out[base + (size_t)kk * Np + col] = den[i];
-            }
-        }
-    }
-
-    if constexpr (LOSS) {
-        // Block sum of ll in a fixed order: warp tree, then warp 0 over warps.
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) ll += __shfl_down_sync(0xffffffffu, ll, off);
-        if (lane == 0) ll_warp[g] = ll;
-        __syncthreads();
-        if (threadIdx.x == 0) {
-            double s = 0.0;
-            for (int i = 0; i < kGroups; ++i) s += ll_warp[i];
-            ll_part[blockIdx.y * gridDim.x + blockIdx.x] = s;
-        }
-    }
-}
 
 // out[e] = sum over s of part[s][e], s in order (the H pass's split over m).
 __global__ void sum_splits_kernel(const float* __restrict__ num_part,
@@ -353,7 +170,7 @@ __global__ void sum_ll_kernel(const double* __restrict__ part, int count, float*
 //
 // Grid (ceil(Mw/2), S): block (x, s) owns the kWRows = 64 data rows of word
 // rows 2x and 2x+1 (local row lr is bit lr % 32 of word row 2x + lr / 32,
-// the bit-plane order of load_w_slice) and column chunk s of S, a run of
+// the bit-plane order of word_row_bit) and column chunk s of S, a run of
 // whole 32-column tiles (the first nt % S chunks take one tile more).  Each
 // block writes its (n_out k, 64) partial of T once, into T itself when S = 1
 // or into scratch (S, n_out k, Mp); sum_parts_kernel then adds the S
@@ -693,38 +510,6 @@ bool geometry_ok(int k, int Mp, int Np, int bm) {
            Mp % bm == 0;
 }
 
-// Registers per thread scale with KPT = ceil(k / 8), rounded up to a power
-// of two so a handful of instantiations covers k in [1, 256].
-template <class L, class... A>
-cudaError_t dispatch_kpt(int k, A... args) {
-    if (k <= 8) return L::template launch<1>(args...);
-    if (k <= 16) return L::template launch<2>(args...);
-    if (k <= 32) return L::template launch<4>(args...);
-    if (k <= 64) return L::template launch<8>(args...);
-    if (k <= 128) return L::template launch<16>(args...);
-    return L::template launch<32>(args...);
-}
-
-template <bool SECOND, typename Y, bool TERMS, bool LOSS, class E>
-struct HlossLauncher {
-    // One H-pass launch, grid ceil(Np/32) x nsplit.
-    template <int KPT>
-    static cudaError_t launch(const float* W, const float* H, const Y* y, const Y* y2,
-                              float* num, float* den, double* ll_part, int k, int Mp, int Np,
-                              int bm, int m_real, int n_real, int rows_per_split, int nsplit,
-                              float eps, cudaStream_t stream) {
-        auto kernel = hloss_kernel<KPT, SECOND, Y, TERMS, LOSS, E>;
-        const size_t smem = smem_bytes(8 * KPT);
-        cudaError_t err =
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-        const dim3 grid((Np + kTile - 1) / kTile, nsplit);
-        kernel<<<grid, kThreads, smem, stream>>>(W, H, y, y2, num, den, ll_part, k, Mp, Np, bm,
-                                                 m_real, n_real, rows_per_split, eps);
-        return cudaGetLastError();
-    }
-};
-
 template <bool SECOND, typename Y, class E>
 struct WpassLauncher {
     // One W-pass launch, grid ceil(Mw/2) x nsplit, into dst (T, or the
@@ -747,7 +532,7 @@ struct WpassLauncher {
     }
 };
 
-// The W pass keeps TK = kpad / 16 k rows per thread: kpad = 16 TK >= k.
+// Both passes keep TK = kpad / 16 k rows per thread: kpad = 16 TK >= k.
 template <class L, class... A>
 cudaError_t dispatch_tk(int k, A... args) {
     if (k <= 16) return L::template launch<1>(args...);
@@ -757,39 +542,397 @@ cudaError_t dispatch_tk(int k, A... args) {
     return L::template launch<16>(args...);
 }
 
+// ------------------------------------------------------------ H pass
+// Num = W.P, Den = W.Q (k, Np) and ll, redesigned for the H100 (see the note
+// at the head of this file for what it replaces and its bound).
+//
+// W is read from its bit-plane copy Wp (k, Mp): column 32 w + b of Wp is
+// data row word_row_bit(w, b) of W, so word row w's 32 data rows are 128
+// contiguous bytes of every k row, whatever the stripe bm.
+//
+// Grid (ceil(Np/64), S): block (x, s) owns the kHCols = 64 columns
+// [64 x, 64 x + 64) and chunk s of S, a run of whole word rows (the first
+// Mw % S chunks take one word row more).  It walks its word rows in order,
+// one step of 32 data rows each, and writes its (k, 64) partials of Num and
+// Den once, into Num/Den themselves when S = 1 or into scratch (S, k, Np);
+// sum_splits_kernel then adds the S partials in order s = 0, 1, ..., and
+// sum_ll_kernel the per-block ll partials in block order: no float atomics,
+// and a launch on the same inputs gives bitwise the same outputs.
+//
+// Per step, two phases between barriers:
+//   A  the 32 x 64 tile of WH (each thread 4 data rows x 2 columns, W and H
+//      read as 16-byte shared loads, contraction over k in ascending
+//      order), then p and q written to Ps/Qs (column-major, 4 rows per
+//      16-byte store) and the thread's ll terms added to its fp64 sum;
+//   B  the (k x 64) accumulation over the step's 32 rows: each thread owns
+//      k rows kg + 16 i (i < TK) and columns cg + 16 c (c < 4) as two
+//      register sums, Num and Den.  Per 4 rows it loads 4 float4 of p, 4 of
+//      q and one float4 of W per k row, which feeds both sums: 256 FMAs for
+//      16 shared loads at TK = 8.
+// The next step's W slice and operand tile arrive by cp.async while phase
+// B runs: the W slice is double-buffered, the operand tile is consumed in
+// phase A.  H's (k x 64) tile is loaded once per block.  Shared tiles whose
+// rows are read at one chunk by many threads swizzle their 16-byte chunks
+// (chunk c of row r stored at c ^ (r & 7); the dense operand tile by
+// (r >> 2) & 7), so those reads are free of bank conflicts.
+constexpr int kHCols = 64;  // columns per block
+constexpr int kHRows = 32;  // data rows per step: one word row
+
+// Shapes of one H-pass instance: TK k rows per thread (kpad = 16 TK >= k).
+template <int TK, bool SECOND, typename Y, bool TERMS, class E>
+struct HPass {
+    static constexpr bool kDense = std::is_same<Y, float>::value;
+    // Identity forms 1 and 3 read no data operand.
+    static constexpr bool kReads = E::kIdentity == 0 || E::kIdentity == 2;
+    static constexpr int kpad = 16 * TK;
+    static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
+    // Shared memory in floats: Hs [kpad/4][64][4]; Ws two stages of
+    // [kpad][32]; Ps, Qs [64][32] (TERMS only); operand tiles, dense
+    // [32][64] or words [64], each.
+    static constexpr int kHs = kpad * kHCols;
+    static constexpr int kWs = kpad * kHRows;
+    static constexpr int kPQ = TERMS ? kHCols * kHRows : 0;
+    static constexpr int kYs = kDense ? kHRows * kHCols : kHCols;
+    static constexpr size_t kSmem =
+        sizeof(float) * (size_t)(kHs + 2 * kWs + 2 * kPQ + kOperands * kYs);
+    // Two blocks per SM (<= 128 registers a thread) while the accumulators
+    // leave room; one at TK = 16.
+    static constexpr int kMinBlocks = TK <= 8 ? 2 : 1;
+};
+
+// Wp[kk][32 w + b] = W[kk][data row of bit b of word row w], rounded to bf16
+// where the policy asks: the H pass's W in bit-plane order.
+template <bool BF16>
+__global__ void bitplane_w_kernel(const float* __restrict__ W, float* __restrict__ Wp, int k,
+                                  int Mp, int bm) {
+    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= (size_t)k * Mp) return;
+    const int kk = (int)(e / Mp), c = (int)(e % Mp);
+    Wp[e] = mxu_operand<BF16>(W[(size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
+}
+
+// SECOND: an explicit second operand (corrected mode's Yc); otherwise
+// yc = 1 - ym.  LOSS=false compiles the logs and the ll partials out
+// (h_terms); TERMS=false phase B and Num/Den (loglik_sum).
+template <int TK, bool SECOND, typename Y, bool TERMS, bool LOSS, class E>
+__global__ void __launch_bounds__(kThreads, (HPass<TK, SECOND, Y, TERMS, E>::kMinBlocks))
+hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
+             const Y* __restrict__ y, const Y* __restrict__ y2, float* __restrict__ num_out,
+             float* __restrict__ den_out, double* __restrict__ ll_part, int k, int Mp, int Np,
+             int bm, int m_real, int n_real, float eps) {
+    using P = HPass<TK, SECOND, Y, TERMS, E>;
+    constexpr bool kDense = P::kDense;
+    constexpr int kpad = P::kpad;
+    extern __shared__ __align__(16) float smem[];
+    float* Hs = smem;
+    float* Wbuf = Hs + P::kHs;
+    float* Ps = Wbuf + 2 * P::kWs;
+    float* Qs = Ps + P::kPQ;
+    float* Ys = Qs + P::kPQ;  // y's tile, then y2's
+    __shared__ double ll_warp[kThreads / 32];
+
+    const int tid = threadIdx.x;
+    const int bmw = bm / 32, Mw = Mp / 32;
+    const int c0 = blockIdx.x * kHCols;
+    const int S = gridDim.y, s = blockIdx.y;
+    const int w_begin = s * (Mw / S) + min(s, Mw % S);
+    const int w_end = w_begin + Mw / S + (s < Mw % S ? 1 : 0);
+    const int kw = (k + 7) & ~7;  // k rows phase A visits (rows >= k are zero)
+
+    for (int e = tid; e < kpad * kHCols; e += kThreads) {
+        const int kk = e / kHCols, c = e % kHCols;
+        const float v = (kk < k && c0 + c < Np) ? H[(size_t)kk * Np + c0 + c] : 0.f;
+        Hs[((kk >> 2) * kHCols + c) * 4 + (kk & 3)] = mxu_operand<E::kBf16>(v);
+    }
+
+    // Issue the cp.async copies of word row w's W slice into stage `st` and
+    // of its operand tiles; zero beyond k and Np.
+    auto stage = [&](int w, int st) {
+        float* Ws = Wbuf + st * P::kWs;
+        for (int e = tid; e < kpad * 8; e += kThreads) {
+            const int kk = e >> 3, ch = e & 7;
+            const bool ok = kk < k;
+            cp_async16(Ws + kk * kHRows + 4 * (ch ^ (kk & 7)),
+                       ok ? Wp + (size_t)kk * Mp + kHRows * w + 4 * ch : Wp, ok);
+        }
+        if constexpr (P::kReads) {
+            constexpr int kRowsY = kDense ? kHRows : 1;
+            const int row0 = word_row_bit(w, 0, bm, bmw);
+            for (int e = tid; e < kRowsY * 16 * P::kOperands; e += kThreads) {
+                const int op = e / (kRowsY * 16), rem = e % (kRowsY * 16);
+                const int b = rem >> 4, ch = rem & 15, col = c0 + 4 * ch;
+                const bool ok = col < Np;
+                const Y* src = op ? y2 : y;
+                const size_t row = kDense ? (size_t)(row0 + b * bmw) : (size_t)w;
+                const int dst = kDense ? b * kHCols + 4 * (ch ^ ((b >> 2) & 7)) : 4 * ch;
+                cp_async16(Ys + op * P::kYs + dst, ok ? src + row * Np + col : src, ok);
+            }
+        }
+        cp_async_commit();
+    };
+
+    // Phase A layout: data rows 4 rq .. 4 rq + 3 (bits of the word row),
+    // columns cw and cw + 32.
+    const int rq = tid & 7, cw = tid >> 3;
+    // Phase B layout: k rows kg + 16 i, columns cg + 16 c; a warp holds 8
+    // column groups and 4 k groups, so each of its p, q and W loads reads at
+    // most 128 distinct bytes (one shared-memory wavefront).
+    const int cg = (tid & 7) | ((tid >> 5 & 1) << 3), kg = (tid >> 3 & 3) | ((tid >> 6) << 2);
+    const int swp = cg & 7, swk = kg & 7;  // the swizzle keys of those rows
+
+    float num[TK][4], den[TK][4];
+#pragma unroll
+    for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) num[i][c] = den[i][c] = 0.f;
+    double ll = 0.0;
+
+    if (w_begin < w_end) stage(w_begin, 0);
+    for (int w = w_begin; w < w_end; ++w) {
+        const int st = (w - w_begin) & 1;
+        const float* Ws = Wbuf + st * P::kWs;
+        cp_async_wait_all();
+        __syncthreads();  // step w has landed; the previous phase B is done
+
+        // ---- phase A: the WH tile, p and q, the ll terms
+        float wh[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) wh[j][r] = 0.f;
+        const float4* Hs4 = reinterpret_cast<const float4*>(Hs);
+#pragma unroll 4
+        for (int k8 = 0; k8 < kw; k8 += 8) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int kq = (k8 >> 2) + half;
+                const float4 ha = Hs4[kq * kHCols + cw];
+                const float4 hb = Hs4[kq * kHCols + cw + 32];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int key = 4 * half + j;  // (k8 + key) & 7
+                    const float4 wv =
+                        reinterpret_cast<const float4*>(Ws + (k8 + key) * kHRows)[rq ^ key];
+#pragma unroll
+                    for (int r = 0; r < 4; ++r) {
+                        wh[0][r] = fmaf(lane(wv, r), lane(ha, j), wh[0][r]);
+                        wh[1][r] = fmaf(lane(wv, r), lane(hb, j), wh[1][r]);
+                    }
+                }
+            }
+        }
+
+        const int stripe = w / bmw;
+        const int row0 = stripe * bm + (w - stripe * bmw);  // data row of bit 0
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const int cl = cw + 32 * j, col = c0 + cl;
+            float ym[4] = {0.f, 0.f, 0.f, 0.f}, yc[4] = {0.f, 0.f, 0.f, 0.f};
+            uint32_t word = 0u, word2 = 0u;
+            if constexpr (P::kReads && kDense) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const int at = (4 * rq + r) * kHCols + 4 * ((cl >> 2) ^ rq) + (cl & 3);
+                    ym[r] = Ys[at];
+                    if constexpr (SECOND) yc[r] = Ys[P::kYs + at];
+                }
+            } else if constexpr (P::kReads) {
+                word = reinterpret_cast<const uint32_t*>(Ys)[cl];
+                if constexpr (SECOND) word2 = reinterpret_cast<const uint32_t*>(Ys + P::kYs)[cl];
+            }
+            float pv[4], qv[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                const int b = 4 * rq + r;  // bit of the word row, local data row
+                const float v = wh[j][r];
+                float p, q;
+                if constexpr (E::kIdentity == 1) {
+                    p = v;
+                    q = v + 1.f;
+                } else if constexpr (E::kIdentity == 2) {
+                    p = v + ym[r];
+                    q = v - ym[r];
+                } else if constexpr (E::kIdentity == 3) {
+                    // o2 sums o1 after each stripe: weight stripe j's rounded
+                    // WH by S - j, exactly (8 significant bits times S < 2^16).
+                    p = mxu_operand<E::kBf16>(v);
+                    q = (float)(Mp / bm - stripe) * p;
+                } else {
+                    const float a = v + eps;
+                    const float bb = (E::kClampB ? fmaxf(1.f - v, 0.f) : 1.f - v) + eps;
+                    const float rr = 1.f / (a * bb);
+                    const bool in_region = row0 + b * bmw < m_real && col < n_real;
+                    if constexpr (kDense) {
+                        const float c = SECOND ? yc[r] : 1.f - ym[r];
+                        p = ym[r] * (bb * rr);
+                        q = c * (a * rr);
+                        // Explicit fmaf: one rounding, the same in every instance.
+                        if (LOSS && in_region) ll += (double)fmaf(ym[r], logf(a), c * logf(bb));
+                    } else if constexpr (E::kSelect) {
+                        const bool bit = (word >> b) & 1u;
+                        p = bit ? bb * rr : 0.f;
+                        float sel;
+                        if (SECOND) {
+                            const bool bit2 = (word2 >> b) & 1u;
+                            q = bit2 ? a * rr : 0.f;
+                            sel = bit ? a : (bit2 ? bb : 1.f);
+                        } else {
+                            q = bit ? 0.f : a * rr;
+                            sel = bit ? a : bb;
+                        }
+                        if (LOSS && in_region) ll += (double)logf(sel);
+                    } else {
+                        // ym unpacked to a float; the products and both logs
+                        // give the select form's values bitwise (1*x = x,
+                        // 0*x + y = y).
+                        static_assert(!SECOND, "the product form takes one operand");
+                        const float ymf = (float)((word >> b) & 1u);
+                        const float c = 1.f - ymf;
+                        p = ymf * (bb * rr);
+                        q = c * (a * rr);
+                        if (LOSS && in_region) ll += (double)fmaf(ymf, logf(a), c * logf(bb));
+                    }
+                }
+                pv[r] = mxu_operand<E::kBf16>(p);
+                qv[r] = mxu_operand<E::kBf16 && E::kIdentity != 3>(q);
+            }
+            if constexpr (TERMS) {
+                const int chunk = cl * (kHRows / 4) + (rq ^ (cl & 7));
+                reinterpret_cast<float4*>(Ps)[chunk] = f4(pv);
+                reinterpret_cast<float4*>(Qs)[chunk] = f4(qv);
+            }
+        }
+        __syncthreads();  // Ps, Qs written; the operand tile is consumed
+        if (w + 1 < w_end) stage(w + 1, st ^ 1);
+
+        // ---- phase B: the accumulation over the step's 32 data rows
+        if constexpr (TERMS) {
+            const float4* P4 = reinterpret_cast<const float4*>(Ps);
+            const float4* Q4 = reinterpret_cast<const float4*>(Qs);
+            const float4* W4 = reinterpret_cast<const float4*>(Ws);
+#pragma unroll
+            for (int r4 = 0; r4 < kHRows / 4; ++r4) {
+                float4 p[4], q[4];
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    const int chunk = (cg + 16 * c) * (kHRows / 4) + (r4 ^ swp);
+                    p[c] = P4[chunk];
+                    q[c] = Q4[chunk];
+                }
+#pragma unroll
+                for (int i = 0; i < TK; ++i) {
+                    if (i > 0 && 16 * i >= k) break;  // uniform: every row kg + 16 i >= k
+                    const float4 wv = W4[(kg + 16 * i) * (kHRows / 4) + (r4 ^ swk)];
+#pragma unroll
+                    for (int r = 0; r < 4; ++r)
+#pragma unroll
+                        for (int c = 0; c < 4; ++c) {
+                            num[i][c] = fmaf(lane(wv, r), lane(p[c], r), num[i][c]);
+                            den[i][c] = fmaf(lane(wv, r), lane(q[c], r), den[i][c]);
+                        }
+                }
+            }
+        }
+    }
+
+    if constexpr (TERMS) {
+        const size_t base = (size_t)s * k * Np;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const int col = c0 + cg + 16 * c;
+            if (col >= Np) continue;
+#pragma unroll
+            for (int i = 0; i < TK; ++i) {
+                const int kk = kg + 16 * i;
+                if (kk >= k) continue;
+                num_out[base + (size_t)kk * Np + col] = num[i][c];
+                den_out[base + (size_t)kk * Np + col] = den[i][c];
+            }
+        }
+    }
+
+    if constexpr (LOSS) {
+        // Block sum of ll in a fixed order: warp tree, then thread 0 over
+        // the warps.
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) ll += __shfl_down_sync(0xffffffffu, ll, off);
+        if ((tid & 31) == 0) ll_warp[tid >> 5] = ll;
+        __syncthreads();
+        if (tid == 0) {
+            double acc = 0.0;
+            for (int i = 0; i < kThreads / 32; ++i) acc += ll_warp[i];
+            ll_part[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+        }
+    }
+}
+
+template <bool SECOND, typename Y, bool TERMS, bool LOSS, class E>
+struct HpassLauncher {
+    // One H-pass launch, grid ceil(Np/64) x nsplit, into num/den (Num/Den,
+    // or the (nsplit, k, Np) partials).
+    template <int TK>
+    static cudaError_t launch(const float* Wp, const float* H, const Y* y, const Y* y2,
+                              float* num, float* den, double* ll_part, int k, int Mp, int Np,
+                              int bm, int m_real, int n_real, int nsplit, float eps,
+                              cudaStream_t stream) {
+        using P = HPass<TK, SECOND, Y, TERMS, E>;
+        auto kernel = hpass_kernel<TK, SECOND, Y, TERMS, LOSS, E>;
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)P::kSmem);
+        if (err != cudaSuccess) return err;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+        if (err != cudaSuccess) return err;
+        const dim3 grid((Np + kHCols - 1) / kHCols, nsplit);
+        kernel<<<grid, kThreads, P::kSmem, stream>>>(Wp, H, y, y2, num, den, ll_part, k, Mp, Np,
+                                                     bm, m_real, n_real, eps);
+        return cudaGetLastError();
+    }
+};
+
 // The H pass of one instance with its fixed-order reductions: Num/Den
-// (k, Np) and ll.  With nsplit > 1 the caller passes (nsplit, k, Np)
-// scratch in num_part/den_part; TERMS=false writes ll only, LOSS=false
-// Num/Den only (ll_part and ll may then be NULL).
+// (k, Np) and ll, over nsplit chunks of word rows (1 <= nsplit <= Mp/32).
+// wperm is (k, Mp) scratch for W's bit-plane copy; with nsplit > 1 the
+// caller passes (nsplit, k, Np) scratch in num_part/den_part (else they may
+// be NULL), and ll_part holds ceil(Np/64) * nsplit doubles.  TERMS=false
+// writes ll only, LOSS=false Num/Den only (ll_part and ll may then be
+// NULL).  The operand rows are copied as 16-byte vectors: Np % 4 == 0 and
+// y, y2 16-byte aligned.
 template <bool SECOND, typename Y, bool TERMS, bool LOSS = true, class E = Sweep>
 int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float* num, float* den,
-                 float* num_part, float* den_part, double* ll_part, float* ll, int k, int Mp,
-                 int Np, int bm, int m_real, int n_real, int rows_per_split, float eps,
+                 float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,
+                 int Mp, int Np, int bm, int m_real, int n_real, int nsplit, float eps,
                  int device, void* stream_ptr) {
-    if (!geometry_ok(k, Mp, Np, bm) || rows_per_split < 1) return (int)cudaErrorInvalidValue;
+    const auto misaligned = [](const void* p) { return ((uintptr_t)p & 15u) != 0; };
+    const bool split = TERMS && nsplit > 1;
+    if (!geometry_ok(k, Mp, Np, bm) || Np % 4 || nsplit < 1 || nsplit > Mp / 32 ||
+        wperm == nullptr || misaligned(wperm) || misaligned(y) || misaligned(y2) ||
+        (TERMS && (num == nullptr || den == nullptr)) ||
+        (split && (num_part == nullptr || den_part == nullptr)) ||
+        (LOSS && (ll_part == nullptr || ll == nullptr)))
+        return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
-    const int Mw = Mp / 32;
-    const int nsplit = (Mw + rows_per_split - 1) / rows_per_split;
-    const bool split = TERMS && nsplit > 1;
-    if (split && (num_part == nullptr || den_part == nullptr)) return (int)cudaErrorInvalidValue;
-    float* num_dst = split ? num_part : num;
-    float* den_dst = split ? den_part : den;
-    err = dispatch_kpt<HlossLauncher<SECOND, Y, TERMS, LOSS, E>>(
-        k, W, H, y, y2, num_dst, den_dst, ll_part, k, Mp, Np, bm, m_real, n_real,
-        rows_per_split, nsplit, eps, stream);
+    const size_t count = (size_t)k * Mp;
+    bitplane_w_kernel<E::kBf16><<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0,
+                                  stream>>>(W, wperm, k, Mp, bm);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = dispatch_tk<HpassLauncher<SECOND, Y, TERMS, LOSS, E>>(
+        k, wperm, H, y, y2, split ? num_part : num, split ? den_part : den, ll_part, k, Mp, Np,
+        bm, m_real, n_real, nsplit, eps, stream);
     if (err != cudaSuccess) return (int)err;
     if (split) {
-        const size_t count = (size_t)k * Np;
-        const int blocks = (int)((count + kThreads - 1) / kThreads);
+        const size_t terms = (size_t)k * Np;
+        const int blocks = (int)((terms + kThreads - 1) / kThreads);
         sum_splits_kernel<<<blocks, kThreads, 0, stream>>>(num_part, den_part, num, den, nsplit,
-                                                           count);
+                                                           terms);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
     if constexpr (LOSS) {
-        const int nparts = ((Np + kTile - 1) / kTile) * nsplit;
+        const int nparts = ((Np + kHCols - 1) / kHCols) * nsplit;
         sum_ll_kernel<<<1, kThreads, 0, stream>>>(ll_part, nparts, ll);
     }
     return (int)cudaGetLastError();
@@ -798,16 +941,16 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
 // The production H pass from the operands y and, when given, y2.
 template <typename Y, bool TERMS, bool LOSS = true>
 int run_hloss(const float* W, const float* H, const Y* y, const Y* y2, float* num, float* den,
-              float* num_part, float* den_part, double* ll_part, float* ll, int k, int Mp,
-              int Np, int bm, int m_real, int n_real, int rows_per_split, float eps, int device,
+              float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,
+              int Mp, int Np, int bm, int m_real, int n_real, int nsplit, float eps, int device,
               void* stream_ptr) {
     if (y2 != nullptr)
         return run_hloss_as<true, Y, TERMS, LOSS>(W, H, y, y2, num, den, num_part, den_part,
-                                                  ll_part, ll, k, Mp, Np, bm, m_real, n_real,
-                                                  rows_per_split, eps, device, stream_ptr);
-    return run_hloss_as<false, Y, TERMS, LOSS>(W, H, y, y2, num, den, num_part, den_part,
-                                               ll_part, ll, k, Mp, Np, bm, m_real, n_real,
-                                               rows_per_split, eps, device, stream_ptr);
+                                                  ll_part, ll, wperm, k, Mp, Np, bm, m_real,
+                                                  n_real, nsplit, eps, device, stream_ptr);
+    return run_hloss_as<false, Y, TERMS, LOSS>(W, H, y, y2, num, den, num_part, den_part, ll_part,
+                                               ll, wperm, k, Mp, Np, bm, m_real, n_real, nsplit,
+                                               eps, device, stream_ptr);
 }
 
 // The W pass of one instance: T (k, Mp), or (2k, Mp) for chain3_tile, over

@@ -17,17 +17,19 @@
 extern "C" {
 
 // Num/Den (k, Np), ll (scalar) from the words (Mp/32, Np) and, in corrected
-// mode, words2 (else NULL).  With nsplit = ceil((Mp/32) / rows_per_split) > 1
-// the caller passes (nsplit, k, Np) scratch in num_part/den_part; with
-// nsplit == 1 they may be NULL.  ll_part holds ceil(Np/32) * nsplit doubles.
+// mode, words2 (else NULL), over nsplit chunks of word rows
+// (1 <= nsplit <= Mp/32).  wperm is (k, Mp) scratch for W in bit-plane
+// order; with nsplit > 1 the caller passes (nsplit, k, Np) scratch in
+// num_part/den_part, with nsplit == 1 they may be NULL.  ll_part holds
+// ceil(Np/64) * nsplit doubles.  Np % 4 == 0, the words 16-byte aligned.
 int nbmf_hloss_terms_packed(const float* W, const float* H, const int32_t* words,
                             const int32_t* words2, float* num, float* den, float* num_part,
-                            float* den_part, double* ll_part, float* ll, int k, int Mp, int Np,
-                            int bm, int m_real, int n_real, int rows_per_split, float eps,
+                            float* den_part, double* ll_part, float* ll, float* wperm, int k,
+                            int Mp, int Np, int bm, int m_real, int n_real, int nsplit, float eps,
                             int device, void* stream_ptr) {
     return run_hloss<int32_t, true>(W, H, words, words2, num, den, num_part, den_part, ll_part,
-                                    ll, k, Mp, Np, bm, m_real, n_real, rows_per_split, eps,
-                                    device, stream_ptr);
+                                    ll, wperm, k, Mp, Np, bm, m_real, n_real, nsplit, eps, device,
+                                    stream_ptr);
 }
 
 // T (k, Mp) from the words, the new H and, when given, words2 (else the

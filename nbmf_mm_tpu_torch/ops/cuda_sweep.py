@@ -43,10 +43,14 @@ __all__ = [
     "pack_bits_host",
     "unpack_bits",
     "apply_col_validity",
+    "bitplane_rows",
+    "blocks_per_sm",
+    "even_chunks",
     "WSplit",
     "column_chunks",
     "plan_w_split",
-    "w_blocks_per_sm",
+    "HSplit",
+    "plan_h_split",
     "hloss_terms_packed",
     "w_terms_packed",
 ]
@@ -60,7 +64,10 @@ LAUNCHES = {"hloss_terms_packed": 0, "w_terms_packed": 0}
 # (two word rows) by a column chunk walked in 32-column tiles.
 W_ROWS = 64
 W_TILE = 32
-W_WAVES = 2  # rounds of resident blocks the W pass's grid should fill at least
+# The H pass's block (``hpass_kernel``): 64 columns by a chunk of word rows
+# walked one word row (32 data rows) at a time.
+H_COLS = 64
+WAVES = 2  # rounds of resident blocks each pass's grid should fill at least
 
 
 def round_up(x: int, m: int) -> int:
@@ -127,6 +134,19 @@ def _unpack_planes(words: torch.Tensor, bm: int) -> torch.Tensor:
 def unpack_bits(words: torch.Tensor, bm: int, dtype=torch.float32) -> torch.Tensor:
     """Inverse of :func:`pack_bits`: words back to a dense 0/1 ``(Mp, Np)``."""
     return _unpack_planes(words, bm).to(dtype)
+
+
+def bitplane_rows(Mp: int, bm: int, device=None) -> torch.Tensor:
+    """Data row of each bit in word-row order: entry ``32 w + b`` is the row
+    that bit ``b`` of word row ``w`` holds for stripe ``bm`` (the order in
+    which :func:`unpack_bits` reads the words back).  The H-pass kernel reads
+    ``W[:, bitplane_rows(Mp, bm)]``, a copy it makes once per call, so that
+    each word row's 32 data rows are contiguous."""
+    bmw = _check_stripe(Mp, bm, "bitplane_rows")
+    w = torch.arange(Mp // PACKED_WORD_BITS, device=device)[:, None]
+    b = torch.arange(PACKED_WORD_BITS, device=device)[None, :]
+    j = w // bmw
+    return (j * bm + (w - j * bmw) + b * bmw).reshape(Mp)
 
 
 def apply_col_validity(H: torch.Tensor, n_real: int) -> torch.Tensor:
@@ -213,17 +233,6 @@ def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False):
             raise ValueError(f"{who}: {name} shape {tuple(t.shape)} != {shape}")
 
 
-def _split_rows(Mw: int, Np: int, device) -> Tuple[int, int]:
-    """``(rows_per_split, nsplit)`` of the H pass: split the ``Mw`` word rows
-    across blocks until ~4 blocks per SM are in flight; the partial sums are
-    then added in a fixed order by a second kernel."""
-    col_tiles = -(-Np // 32)
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    want = min(Mw, max(1, -(-4 * n_sm // col_tiles)))
-    rows_per_split = -(-Mw // want)
-    return rows_per_split, -(-Mw // rows_per_split)
-
-
 class WSplit(NamedTuple):
     """The W pass's column split, as :func:`plan_w_split` plans it."""
 
@@ -234,53 +243,91 @@ class WSplit(NamedTuple):
     waves: float  # blocks over the blocks the card holds at once
 
 
-def w_blocks_per_sm(k: int) -> int:
-    """W-pass blocks one SM holds at once: two while ``k <= 128`` (the
-    kernel's launch bounds cap it at 128 registers a thread, and a block
-    takes at most 112 KiB of shared memory), one above."""
+class HSplit(NamedTuple):
+    """The H pass's row split, as :func:`plan_h_split` plans it."""
+
+    nsplit: int  # S, the chunks of word rows (grid dimension y)
+    chunks: Tuple[Tuple[int, int], ...]  # [begin, end) word rows of chunk s, in order
+    scratch: Optional[Tuple[int, int, int]]  # (S, k, Np) partials of Num and Den; None when S == 1
+    blocks: int  # ceil(Np / 64) column blocks times S
+    waves: float  # blocks over the blocks the card holds at once
+
+
+def blocks_per_sm(k: int) -> int:
+    """Blocks of either pass one SM holds at once: two while ``k <= 128``
+    (the kernels' launch bounds cap them at 128 registers a thread, and a
+    block takes at most 112 KiB of shared memory), one above."""
     return 2 if k <= 128 else 1
+
+
+def even_chunks(n: int, nsplit: int) -> Tuple[Tuple[int, int], ...]:
+    """``[begin, end)`` of ``nsplit`` runs of ``0..n``, in order, as the
+    kernels cut them: the first ``n % nsplit`` take one unit more.  The H
+    pass's chunks of word rows."""
+    if not 1 <= nsplit <= n:
+        raise ValueError(f"{nsplit} chunks of {n} units")
+    base, extra = divmod(n, nsplit)
+    chunks, t = [], 0
+    for s in range(nsplit):
+        chunks.append((t, t + base + (s < extra)))
+        t = chunks[-1][1]
+    return tuple(chunks)
 
 
 def column_chunks(Np: int, nsplit: int) -> Tuple[Tuple[int, int], ...]:
     """``[begin, end)`` of each of ``nsplit`` column chunks of whole
-    32-column tiles, as the kernel cuts them: the first ``nt % nsplit``
-    chunks take one tile more than the rest; the last ends at ``Np``."""
-    nt = -(-Np // W_TILE)
-    if not 1 <= nsplit <= nt:
-        raise ValueError(f"column_chunks: {nsplit} chunks of {nt} tiles")
-    base, extra = divmod(nt, nsplit)
-    chunks, t = [], 0
-    for s in range(nsplit):
-        n = base + (s < extra)
-        chunks.append((t * W_TILE, min(Np, (t + n) * W_TILE)))
-        t += n
-    return tuple(chunks)
+    32-column tiles, as the W-pass kernel cuts them: the first
+    ``nt % nsplit`` chunks take one tile more than the rest; the last ends
+    at ``Np``."""
+    return tuple((b * W_TILE, min(Np, e * W_TILE))
+                 for b, e in even_chunks(-(-Np // W_TILE), nsplit))
+
+
+def _least_waste_split(units: int, other: int, slots: int, waves: int) -> int:
+    """The split of ``units`` into chunks for a grid of ``other x S``
+    blocks on ``slots`` resident blocks: ``S`` starts at the least count
+    that gives ``waves`` rounds (at most one chunk per unit) and may grow to
+    twice that where the last round and the chunks' unit counts waste less:
+    blocks of one launch do equal work, so a round that is half full costs
+    a full round."""
+    s0 = min(units, -(-waves * slots // other))
+
+    def used(s):
+        blocks = other * s
+        return blocks / (-(-blocks // slots) * slots) * units / (s * -(-units // s))
+
+    return max(range(s0, min(units, 2 * s0) + 1), key=lambda s: (used(s), -s))
 
 
 def plan_w_split(Mp: int, Np: int, k: int, n_sm: int, n_out: int = 1) -> WSplit:
     """Split the W pass's columns so that its ``ceil(Mp/64) x S`` grid fills
-    ``n_sm`` SMs for at least ``W_WAVES`` rounds of resident blocks.
-
-    ``S`` starts at the least count that gives those rounds (at most one
-    chunk per tile) and may grow to twice that where the last round and
-    the chunks' tile counts waste less: blocks of one launch do equal work,
-    so a round that is half full costs a full round.  The partials are
-    added in a fixed order by a second kernel, so every ``S`` gives a
-    bitwise repeatable ``T``.
+    ``n_sm`` SMs for at least ``WAVES`` rounds of resident blocks, wasting
+    least (:func:`_least_waste_split`).  The partials are added in a fixed
+    order by a second kernel, so every ``S`` gives a bitwise repeatable
+    ``T``.
     """
     row_blocks = -(-Mp // W_ROWS)
-    nt = -(-Np // W_TILE)
-    slots = n_sm * w_blocks_per_sm(k)
-    s0 = min(nt, -(-W_WAVES * slots // row_blocks))
-
-    def used(s):
-        blocks = row_blocks * s
-        return blocks / (-(-blocks // slots) * slots) * nt / (s * -(-nt // s))
-
-    nsplit = max(range(s0, min(nt, 2 * s0) + 1), key=lambda s: (used(s), -s))
+    slots = n_sm * blocks_per_sm(k)
+    nsplit = _least_waste_split(-(-Np // W_TILE), row_blocks, slots, WAVES)
     blocks = row_blocks * nsplit
     return WSplit(nsplit, column_chunks(Np, nsplit),
                   (nsplit, n_out * k, Mp) if nsplit > 1 else None, blocks, blocks / slots)
+
+
+def plan_h_split(Mp: int, Np: int, k: int, n_sm: int) -> HSplit:
+    """Split the H pass's word rows so that its ``ceil(Np/64) x S`` grid
+    fills ``n_sm`` SMs for at least ``WAVES`` rounds of resident blocks,
+    wasting least (:func:`_least_waste_split`).  Num/Den partials and the ll
+    partials are added in a fixed order by two more kernels, so every ``S``
+    gives bitwise repeatable outputs.
+    """
+    col_blocks = -(-Np // H_COLS)
+    slots = n_sm * blocks_per_sm(k)
+    Mw = Mp // PACKED_WORD_BITS
+    nsplit = _least_waste_split(Mw, col_blocks, slots, WAVES)
+    blocks = col_blocks * nsplit
+    return HSplit(nsplit, even_chunks(Mw, nsplit), (nsplit, k, Np) if nsplit > 1 else None,
+                  blocks, blocks / slots)
 
 
 def _raise_on_error(lib, who, err):
@@ -292,38 +339,46 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _check_aligned(who, **tensors):
+    """The kernels copy these operands' rows as 16-byte vectors."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must start on a 16-byte boundary")
+
+
 def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=True,
                   loss=True):
     """Allocate the outputs and scratch of an H-pass entry point (packed or
     dense; with ``terms=False`` the ll-only one, with ``loss=False`` one
-    without ll) and launch it on the current stream.  Returns
+    without ll), the row split's partials (:func:`plan_h_split`) and W's
+    bit-plane copy, and launch it on the current stream.  Returns
     ``(Num, Den, ll)``, ``Num``/``Den`` None without terms, ``ll`` None
     without loss.  ``y`` may be None for an entry that reads no data."""
     from ._build import load_library
 
+    _check_aligned(who, y=y, y2=y2)
     lib = load_library()
     k, Mp = W.shape
     Np = H.shape[1]
     dev = W.device
-    rows_per_split, nsplit = _split_rows(Mp // PACKED_WORD_BITS, Np, dev)
+    plan = plan_h_split(Mp, Np, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=dev)
     ll = ll_part = None
     if loss:
-        ll = torch.empty((), dtype=torch.float32, device=dev)
-        ll_part = torch.empty(-(-Np // 32) * nsplit, dtype=torch.float64, device=dev)
+        ll = torch.empty((), **f32)
+        ll_part = torch.empty(-(-Np // H_COLS) * plan.nsplit, dtype=torch.float64, device=dev)
+    wperm = torch.empty((k, Mp), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tail = (k, Mp, Np, bm, m_real, n_real, rows_per_split, float(eps), dev.index or 0, stream)
     num = den = num_part = den_part = None
+    outs = ()
     if terms:
-        num = torch.empty((k, Np), dtype=torch.float32, device=dev)
-        den = torch.empty_like(num)
-        if nsplit > 1:
-            num_part = torch.empty((nsplit, k, Np), dtype=torch.float32, device=dev)
-            den_part = torch.empty_like(num_part)
+        num, den = torch.empty((k, Np), **f32), torch.empty((k, Np), **f32)
+        if plan.scratch is not None:
+            num_part, den_part = torch.empty(plan.scratch, **f32), torch.empty(plan.scratch, **f32)
         outs = (num.data_ptr(), den.data_ptr(), _ptr(num_part), _ptr(den_part))
-    else:
-        outs = ()
     err = getattr(lib, entry)(W.data_ptr(), H.data_ptr(), _ptr(y), _ptr(y2), *outs,
-                              _ptr(ll_part), _ptr(ll), *tail)
+                              _ptr(ll_part), _ptr(ll), wperm.data_ptr(), k, Mp, Np, bm, m_real,
+                              n_real, plan.nsplit, float(eps), dev.index or 0, stream)
     _raise_on_error(lib, who, err)
     return num, den, ll
 
@@ -335,9 +390,7 @@ def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
     copies ``H``'s and the operands' rows as 16-byte vectors."""
     from ._build import load_library
 
-    for name, t in (("H", H_new), ("y", y), ("y2", y2)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{who}: {name} must start on a 16-byte boundary")
+    _check_aligned(who, H=H_new, y=y, y2=y2)
     lib = load_library()
     k, Mp = W.shape
     Np = H_new.shape[1]

@@ -7,5 +7,6 @@ library's dense passes; the others time the probes of
 :mod:`nbmf_mm_tpu_torch.ops.probes`, which split one sweep pass into its
 matmul, elementwise and memory-stream costs.  ``sass_diff`` compares the
 kernels' compiled code with that of another copy of the sources, and
-``wpass_tune`` times variants of the W pass to split its time by phase.
+``wpass_tune`` and ``hpass_tune`` time variants of the W and H passes to
+split their time by phase.
 """

@@ -68,7 +68,12 @@ def variants(header: str) -> dict:
     }
 
 
-def _build_variants(texts: dict, out_dir: Path) -> dict:
+def _build_variants(texts: dict, out_dir: Path, entry: str = "nbmf_w_terms_packed",
+                    kernel: str = "wpass_kernelILi8E", label: str = "TK=8") -> dict:
+    """Build ``sweep_packed.cu`` against each header text (all ``nvcc`` runs
+    started together) and return ``{name: the C entry point}``; prints
+    ptxas's registers and spills of the instances whose names hold
+    ``kernel``."""
     shutil.rmtree(out_dir, ignore_errors=True)
     jobs = {}
     for name, text in texts.items():
@@ -84,16 +89,16 @@ def _build_variants(texts: dict, out_dir: Path) -> dict:
     for name, (so, proc) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"wpass_tune: {name} does not build\n{log}")
-        kernel = None
+            raise RuntimeError(f"{name} does not build\n{log}")
+        compiling = None
         for line in log.splitlines():
             if "Compiling entry" in line:
-                kernel = line
-            elif kernel and "wpass_kernelILi8E" in kernel and ("registers" in line
-                                                               or "spill" in line):
-                print(f"  {name} TK=8{' SECOND' if 'Lb1E' in kernel else ''}: {line.strip()}")
-        fn = ctypes.CDLL(str(so)).nbmf_w_terms_packed
-        fn.argtypes = _build._SIGNATURES["nbmf_w_terms_packed"]
+                compiling = line
+            elif compiling and kernel in compiling and ("registers" in line or "spill" in line):
+                print(f"  {name} {label}{' SECOND' if kernel + 'Lb1E' in compiling else ''}: "
+                      f"{line.strip()}")
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = _build._SIGNATURES[entry]
         fn.restype = ctypes.c_int
         entries[name] = fn
     return entries

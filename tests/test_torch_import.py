@@ -43,7 +43,8 @@ def test_import_leaves_jax_out():
         "nbmf_mm_tpu_torch.tools.bench_kernels, nbmf_mm_tpu_torch.tools.bench_packed, "
         "nbmf_mm_tpu_torch.tools.bench_packed2, nbmf_mm_tpu_torch.tools.bench_packed3, "
         "nbmf_mm_tpu_torch.tools.bench_diag, nbmf_mm_tpu_torch.tools.bench_stream, "
-        "nbmf_mm_tpu_torch.tools.bench_vpu, nbmf_mm_tpu_torch.tools.sass_diff, nbmf_mm_tpu_torch.tools.wpass_tune; "
+        "nbmf_mm_tpu_torch.tools.bench_vpu, nbmf_mm_tpu_torch.tools.sass_diff, nbmf_mm_tpu_torch.tools.wpass_tune, "
+        "nbmf_mm_tpu_torch.tools.hpass_tune; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'nbmf_mm_tpu' or m.startswith('nbmf_mm_tpu.')]; "
         "assert not bad, bad; print('ok')" % REPO

@@ -68,13 +68,13 @@ def test_plan_covers_every_column_once_and_fills_the_card(shape, k):
     assert plan.scratch == (None if plan.nsplit == 1 else (plan.nsplit, k, Mp))
     row_blocks = -(-Mp // cs.W_ROWS)
     assert plan.blocks == row_blocks * plan.nsplit
-    slots = H100_SMS * cs.w_blocks_per_sm(k)
+    slots = H100_SMS * cs.blocks_per_sm(k)
     assert plan.waves == pytest.approx(plan.blocks / slots)
-    # about two waves: at least W_WAVES unless every chunk is one tile,
+    # about two waves: at least WAVES unless every chunk is one tile,
     # and no more than twice the least split that reaches them
     if plan.nsplit < tiles:
-        assert plan.waves >= cs.W_WAVES
-    s0 = min(tiles, -(-cs.W_WAVES * slots // row_blocks))
+        assert plan.waves >= cs.WAVES
+    s0 = min(tiles, -(-cs.WAVES * slots // row_blocks))
     assert s0 <= plan.nsplit <= 2 * s0
 
 
