@@ -34,11 +34,23 @@ the tools' correctness shape (512 x 640, K=16) and their headline size
 a timing line per probe, then every script of the package through its entry
 point with the launch counters zeroed before and read after.
 
+Phase 8 is packed and sparse input at the headline size, each run with the
+launch counters zeroed before and read after: ``NBMF.fit`` on the headline
+matrix as a ``scipy.sparse`` CSR and as a ``PackedMatrix`` (bitwise equal to
+the binary main path, K1 and K2 only); the four packers against
+``pack_bits`` of the padded matrix; ``solve(PackedMatrix)`` and
+``device_results=True`` against the dense-input solve; lastfm as a CSR under
+a CSR mask in both mask modes; the contract errors; the scale run (a
+10^5 x 10^4 CSR at 3%, packed from its structure and solved for 10 sweeps
+with the peak device memory held under half of the dense matrix's); and the
+set-up breakdown of a fit from numpy input with the three host stagings.
+
 Each phase prints one line or more; any failure raises and the script exits
 non-zero.  The last line is a JSON object with ``"ok": true`` and the
 device; the line before it lists the kernels.
 
-Imports torch, numpy and nbmf_mm_tpu_torch only.  Needs one CUDA card.
+Imports torch, numpy, scipy.sparse and nbmf_mm_tpu_torch only.  Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -100,7 +112,8 @@ H_EDGES = (*((f"ragged k={k}", (1_000, 1_234), k) for k in (1, 17, 33, 200, 256)
 SWEEP = "nbmf_mm_tpu_torch".removesuffix("_torch") + "/ops/pallas_sweep.py"
 # name: (source, file:line of the TPU kernel it replaces).  The kernels of
 # the three main paths; the dense H and W kernels also replace the stripe
-# forms hloss_terms_stripe (:546) and w_terms_stripe (:650).
+# forms hloss_terms_stripe (:546) and w_terms_stripe (:650).  Phase 8 (packed
+# and sparse input) runs the first two, K1 and K2, and no dense kernel.
 PATH_KERNELS = {
     "hloss_terms_packed": ("sweep_packed.cu", f"{SWEEP}:843"),
     "w_terms_packed": ("sweep_packed.cu", f"{SWEEP}:947"),
@@ -134,6 +147,13 @@ TOOLS = ("bench_kernels", "bench_true", "bench_packed", "bench_packed2", "bench_
 PROBE_SIZES = ((512, 640, 16), (10_240, 10_240, 128))
 CSRC = "nbmf_mm_tpu_torch/ops/csrc/"
 MODES = ("unmasked", "parity", "corrected")
+# Phase 8's scale run: the sparse-ingest configuration of the repository's
+# experiments/flagship_scale.py (10^9 entries at 3%, K=128), 10 sweeps.
+SCALE = dict(m=100_000, n=10_000, k=128, density=0.03, sweeps=10)
+SCALE_INGEST_LIMIT_S = 60.0  # the host packing alone must stay under this
+# The three ways from host numpy operands to words on the card; solve takes
+# the first.
+HOST_STAGINGS = ("f32-device", "host", "u8-device")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -498,7 +518,7 @@ def binary_main_path(NBMF, X, card, cs, ds):
               f"{name} launched {launches[name]} times for {est.n_iter_} sweeps")
     check_fit("binary fit", est, losses, card)
     refit_checks("main path (binary)", NBMF, params, X, est, card)
-    return launches
+    return est, params, wall, launches
 
 
 def dense_main_path(NBMF, P, card, cs, ds):
@@ -537,9 +557,11 @@ def packed_vs_dense_solve(solve, X, lastfm, card):
     for mode in ("parity", "corrected"):
         runs.append((f"lastfm {mode}", lastfm,
                      dict(n_components=8, max_iter=60, mask=mask, mask_mode=mode)))
+    results = {}
     for name, Y, kw in runs:
         kw = dict(kw, random_state=0, dtype="float32", device=DEV)
         dense, auto = solve(Y, packed=False, **kw), solve(Y, **kw)
+        results[name] = (auto, kw)
         same = (dense.n_iter == auto.n_iter and dense.losses == auto.losses
                 and np.array_equal(dense.W, auto.W) and np.array_equal(dense.H, auto.H))
         print(f"solve packed=False vs packed=None ({name}, {dense.n_iter} sweeps): "
@@ -547,6 +569,7 @@ def packed_vs_dense_solve(solve, X, lastfm, card):
         check(dense.extras["packed"] is False and auto.extras["packed"] is True,
               f"{name}: packed routing")
         check(same, f"{name}: packed and dense solves differ")
+    return results, mask
 
 
 def serving_requests(H, seed):
@@ -886,6 +909,335 @@ def measurement_path(card, cs, ds, pr) -> dict:
     return {name: launches[name] for name in MEASUREMENT_KERNELS}
 
 
+def add_counts(total: dict, *modules) -> None:
+    """Add the launch counters read now to ``total``."""
+    for name, count in read_counts(*modules).items():
+        total[name] = total.get(name, 0) + count
+
+
+def expect_raises(exc, match: str, fn, what: str) -> None:
+    """``fn`` must raise ``exc`` with ``match`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        check(match in str(e), f"{what}: raised {e!r}, expected {match!r} in the message")
+        return
+    raise RuntimeError(f"check failed: {what}: did not raise {exc.__name__}")
+
+
+def same_result(a, b) -> bool:
+    return (a.n_iter == b.n_iter and list(a.losses) == list(b.losses)
+            and np.array_equal(a.W, b.W) and np.array_equal(a.H, b.H))
+
+
+def timed(fn):
+    """(result, seconds) of ``fn`` on the host clock, the card drained."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def input_fits(NBMF, X, S, binary_est, params, binary_wall, total, card, cs, ds):
+    """``NBMF.fit`` on the headline matrix as a CSR and as a PackedMatrix:
+    bitwise the binary main path's fit, through K1 and K2 only."""
+    from nbmf_mm_tpu_torch import pack_matrix
+
+    pm, pack_s = timed(lambda: pack_matrix(X, HEADLINE["k"], device=DEV))
+    for kind, data in (("scipy.sparse CSR", S), ("PackedMatrix", pm)):
+        zero_counts(cs, ds)
+        est, wall = timed(lambda: NBMF(**params).fit(data))
+        launches = read_counts(cs, ds)
+        add_counts(total, cs, ds)
+        same = (np.array_equal(est.W_, binary_est.W_)
+                and np.array_equal(est.components_, binary_est.components_)
+                and est.loss_curve_ == binary_est.loss_curve_)
+        extra = f" (after pack_matrix on the host {pack_s:.2f} s)" if data is pm else ""
+        print(f"input: NBMF.fit on the headline matrix as {kind}: n_iter {est.n_iter_}, "
+              f"{wall:.2f} s wall{extra} against {binary_wall:.2f} s from the numpy matrix; "
+              f"W_, components_, loss_curve_ bitwise equal to that fit {same}; extras "
+              f"{est.solver_result_.extras}; launches {launches} [{card}]", flush=True)
+        check(same, f"fit on {kind} differs from the dense-input fit")
+        check(est.solver_result_.extras == {"backend": "fused", "packed": True},
+              f"fit on {kind} took {est.solver_result_.extras}")
+        for name in ("hloss_terms_packed", "w_terms_packed"):
+            check(launches[name] >= est.n_iter_ > 0, f"fit on {kind}: {name} launched "
+                  f"{launches[name]} times for {est.n_iter_} sweeps")
+        check(launches["hloss_terms"] == launches["w_terms"] == launches["loglik_sum"] == 0,
+              f"fit on {kind} launched a dense kernel")
+    return pm
+
+
+def input_packers(solve, X, S, pm, dense_solve, total, card, cs, ds):
+    """The four packers give the words of ``pack_bits`` on the padded matrix;
+    a solve on them, and its device results, equal the dense-input solve."""
+    from nbmf_mm_tpu_torch import pack_matrix_chunked, pack_matrix_sparse
+
+    m, n = X.shape
+    k = HEADLINE["k"]
+    bm, Mp, Np = cs.plan_packing(m, n)
+    Xd = torch.as_tensor(X, device=DEV)
+    want = cs.pack_bits(padded(Xd, Mp, Np), bm)
+    packs = {"pack_matrix": (pm, None)}
+    packs["pack_matrix_sparse"] = timed(lambda: pack_matrix_sparse(S, k, device=DEV))
+    packs["pack_matrix_chunked (host chunks of 2048 rows)"] = timed(
+        lambda: pack_matrix_chunked(lambda a, b: X[a:b], m, n, k, chunk_rows=2048, device=DEV))
+    packs["pack_matrix_chunked (tensor chunks on the card)"] = timed(
+        lambda: pack_matrix_chunked(lambda a, b: Xd[a:b], m, n, k, chunk_rows=2048, device=DEV))
+    for name, (p, seconds) in packs.items():
+        same = torch.equal(p.words, want) and p.block_m == bm and p.padded_shape == (Mp, Np)
+        round_trip = torch.equal(p.unpack(), Xd)
+        took = "" if seconds is None else f" in {seconds:.2f} s"
+        print(f"input: {name}{took}: {p.nbytes / 1e6:.1f} MB of words on {p.words.device}, "
+              f"bitwise equal to pack_bits of the padded matrix {same}; unpack() equals the "
+              f"matrix {round_trip} [{card}]", flush=True)
+        check(same and round_trip, f"{name}: wrong words")
+        check(p.words.is_cuda and p.words.is_contiguous() and p.words.data_ptr() % 16 == 0,
+              f"{name}: words not contiguous, aligned and on the card")
+    del want, Xd
+
+    auto, kw = dense_solve
+    zero_counts(cs, ds)
+    host = solve(pm, **kw)
+    dev = solve(pm, device_results=True, **kw)
+    launches = read_counts(cs, ds)
+    add_counts(total, cs, ds)
+    on_card = all(isinstance(t, torch.Tensor) and t.is_cuda for t in (dev.W, dev.H, dev.losses))
+    dev_same = (on_card and np.array_equal(dev.W.cpu().numpy(), auto.W)
+                and np.array_equal(dev.H.cpu().numpy(), auto.H)
+                and [float(x) for x in dev.losses.cpu()] == auto.losses)
+    print(f"input: solve(PackedMatrix), {host.n_iter} sweeps at tol=0: bitwise equal to the "
+          f"dense-input solve {same_result(host, auto)}; device_results=True returns CUDA "
+          f"tensors {on_card} equal to those arrays {dev_same}; launches {launches} [{card}]",
+          flush=True)
+    check(same_result(host, auto), "solve(PackedMatrix) differs from the dense-input solve")
+    check(dev_same, "device_results=True differs from the numpy results")
+    check(launches["hloss_terms_packed"] == 2 * (host.n_iter + 1)
+          and launches["w_terms_packed"] == 2 * host.n_iter, "solve(PackedMatrix): launches")
+
+
+def input_sparse_masked(solve, lastfm, mask, dense_solves, total, card, cs, ds):
+    """lastfm as a CSR under a CSR mask (80% observed): bitwise the
+    dense-input masked solves, in both mask modes."""
+    import scipy.sparse as sp
+
+    S, M = sp.csr_matrix(lastfm), sp.csr_matrix(mask)
+    for mode in ("parity", "corrected"):
+        auto, kw = dense_solves[f"lastfm {mode}"]
+        zero_counts(cs, ds)
+        res = solve(S, **dict(kw, mask=M))
+        launches = read_counts(cs, ds)
+        add_counts(total, cs, ds)
+        print(f"input: solve(csr, mask=csr) lastfm {mode}, {res.n_iter} sweeps: extras "
+              f"{res.extras}; bitwise equal to the dense-input masked solve "
+              f"{same_result(res, auto)}; launches {launches} [{card}]", flush=True)
+        check(res.extras == {"backend": "fused", "packed": True}, f"sparse {mode}: routing")
+        check(same_result(res, auto), f"sparse masked {mode} differs from dense input")
+        check(launches["hloss_terms"] == launches["w_terms"] == 0,
+              f"sparse masked {mode} launched a dense kernel")
+
+
+def input_contract_errors(solve, X, S, pm, card):
+    """The contract errors of packed and sparse input, raised on the card."""
+    from nbmf_mm_tpu_torch import PackedMatrix
+
+    kw = dict(max_iter=2, device=DEV)
+    k = HEADLINE["k"]
+    cases = (
+        ("dir-beta", "beta-dir", lambda: solve(pm, k, orientation="dir-beta", **kw)),
+        ("a mask", "mask", lambda: solve(pm, k, mask=np.ones(X.shape, np.float32), **kw)),
+        ("packed=False", "packed=False", lambda: solve(pm, k, packed=False, **kw)),
+        ("float64", "float32", lambda: solve(pm, k, dtype="float64", **kw)),
+        ("a foreign block_m", "PackedMatrix", lambda: solve(
+            PackedMatrix(words=pm.words, shape=pm.shape, block_m=128), k, **kw)),
+        ("the plain loop", "fused loop", lambda: solve(pm, k, backend="plain", **kw)),
+        ("a rank above the cap", "fused loop", lambda: solve(pm, 257, **kw)),
+        ("3 * csr with packed=True", "binary", lambda: solve(S * 3.0, k, packed=True, **kw)),
+    )
+    for what, match, fn in cases:
+        expect_raises(ValueError, match, fn, what)
+    print(f"input: contract errors raised for {', '.join(c[0] for c in cases)} [{card}]",
+          flush=True)
+
+
+def scale_run(solve, total, card, cs, ds, errors):
+    """The sparse-ingest scale run: a CSR at 3% packed straight from its
+    structure, then solved from the words with device results.  The dense
+    float32 matrix would take 4 m n bytes on the card; the peak must stay
+    under half of that.  K1 and K2 plan other splits at this geometry than at
+    any earlier phase's, so both are then held against their plain versions
+    on the run's words and final factors."""
+    import scipy.sparse as sp
+
+    from nbmf_mm_tpu_torch import pack_matrix_sparse
+
+    m, n, k, sweeps = SCALE["m"], SCALE["n"], SCALE["k"], SCALE["sweeps"]
+
+    def build():
+        rng = np.random.default_rng(0)
+        nnz = int(SCALE["density"] * m * n)
+        S = sp.csr_matrix((np.ones(nnz, dtype=np.float32),
+                           (rng.integers(0, m, nnz), rng.integers(0, n, nnz))), shape=(m, n))
+        S.data[:] = 1.0  # collisions summed at construction; binary again
+        return S
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    S, build_s = timed(build)
+    pm, ingest_s = timed(lambda: pack_matrix_sparse(S, k, device=DEV))
+    check(ingest_s <= SCALE_INGEST_LIMIT_S, f"scale: packing {m} rows on the host took "
+          f"{ingest_s:.1f} s, over {SCALE_INGEST_LIMIT_S:g} s")
+    zero_counts(cs, ds)
+    res, solve_s = timed(lambda: solve(pm, k, max_iter=sweeps, tol=0.0, random_state=0,
+                                       device_results=True, device=DEV))
+    # The second run is warm; its time over the sweeps is the ms/sweep.
+    res, solve_s = timed(lambda: solve(pm, k, max_iter=sweeps, tol=0.0, random_state=0,
+                                       device_results=True, device=DEV))
+    launches = read_counts(cs, ds)
+    add_counts(total, cs, ds)
+    peak = torch.cuda.max_memory_allocated()
+    dense_bytes = 4 * m * n
+    losses = res.losses.cpu().numpy()
+    row_sums = res.W.sum(dim=1)
+    drift = float((row_sums - 1).abs().max())
+    print(f"scale: {m}x{n} CSR at {S.nnz / (m * n):.2%} ({S.nnz} stored, built in "
+          f"{build_s:.1f} s): pack_matrix_sparse {pm.nbytes / 1e6:.1f} MB of words in "
+          f"{ingest_s:.2f} s ({m * n / ingest_s / 1e6:.0f} Mentries/s); solve(PackedMatrix, "
+          f"k={k}, {sweeps} sweeps, device_results=True) {solve_s:.3f} s = "
+          f"{1e3 * solve_s / sweeps:.2f} ms/sweep set-up included; loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; max |row sum of W - 1| {drift:.2e}; peak device memory "
+          f"{peak / 1e6:.1f} MB ({held / 1e6:.1f} MB held before the run) against "
+          f"{dense_bytes / 1e6:.0f} MB for the dense float32 matrix; "
+          f"launches {launches} [{card}]", flush=True)
+    check(all(isinstance(t, torch.Tensor) and t.is_cuda for t in (res.W, res.H, res.losses)),
+          "scale: results are not CUDA tensors")
+    check(res.n_iter == sweeps and np.isfinite(losses).all(), "scale: losses not finite")
+    check(bool(np.all(losses[1:] <= losses[:-1] * (1 + 1e-5))), "scale: losses do not descend")
+    check(drift <= 1e-5, "scale: rows of W do not sum to 1")
+    check(tuple(res.W.shape) == (m, k) and tuple(res.H.shape) == (k, n), "scale: shapes")
+    check(peak < dense_bytes / 2, f"scale: peak device memory {peak} is not under half of the "
+          f"dense matrix's {dense_bytes}")
+    check(launches["hloss_terms_packed"] == 2 * (sweeps + 1)
+          and launches["w_terms_packed"] == 2 * sweeps, "scale: launches")
+
+    # After the peak reading: the plain versions hold the dense product.  With
+    # one column chunk the W pass adds each output's columns in order, as the
+    # plain version's matmuls do here, so T may agree to the last bit.
+    bm, Mp, Np = cs.plan_packing(m, n)
+    check(pm.block_m == bm and tuple(pm.words.shape) == (Mp // 32, Np), "scale: geometry")
+    W, H = padded(res.W.T, k, Mp), padded(res.H, k, Np)
+    del res
+    num, den, ll = cs.hloss_terms_packed(W, H, pm.words, eps=EPS, m_real=m, n_real=n, bm=bm)
+    T = cs.w_terms_packed(W, H, pm.words, eps=EPS, n_real=n, bm=bm)
+    torch.cuda.synchronize()
+    pnum, pden, pll = cs.hloss_terms_packed_plain(W, H, pm.words, eps=EPS, m_real=m, n_real=n,
+                                                  bm=bm)
+    pT = cs.w_terms_packed_plain(W, H, pm.words, eps=EPS, n_real=n, bm=bm)
+    e = dict(num=rel(num, pnum), den=rel(den, pden), T=rel(T, pT), ll=rel_ll(ll, pll))
+    errors["hloss_terms_packed"] = max(errors["hloss_terms_packed"], abs_err(num, pnum),
+                                       abs_err(den, pden), abs_err(ll, pll))
+    errors["w_terms_packed"] = max(errors["w_terms_packed"], abs_err(T, pT))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"scale: kernels at {Mp}x{Np} k={k} ({Mp // bm} stripes), H split "
+          f"{cs.plan_h_split(Mp, Np, k, n_sm)}, W split {cs.plan_w_split(Mp, Np, k, n_sm)}: "
+          f"rel err num {e['num']:.3e} den {e['den']:.3e} T {e['T']:.3e} (bound {TOL_TERMS:g} "
+          f"of max|plain|), ll {e['ll']:.3e} (bound {TOL_LL:g}); T bitwise equal to plain "
+          f"{torch.equal(T, pT)} [{card}]", flush=True)
+    check(max(e["num"], e["den"], e["T"]) <= TOL_TERMS and e["ll"] <= TOL_LL,
+          f"scale: kernel disagrees with plain {e}")
+
+
+def setup_breakdown(solve, X, pm, card, cs):
+    """Where the set-up of a headline fit from numpy input goes, unmasked and
+    parity-masked: the estimator's checks, the scans, the three stagings that
+    give the same words (seconds and peak device memory each), and the loop."""
+    from nbmf_mm_tpu_torch.ops.packed import _pack_host, _pack_tensor, binary_as_uint8
+    from nbmf_mm_tpu_torch.solver import driver
+
+    def stage(Y, mask, how):
+        """Words (Y1, Y2) on the card of host operands: the float32 operands
+        through solve's own staging; or scanned and packed on the host, the
+        words copied; or scanned on the host, copied as uint8 and packed on
+        the card."""
+        if how == "f32-device":
+            Y1, Y2, binary = driver._stage_dense(
+                torch.from_numpy(Y).to(DEV),
+                None if mask is None else torch.from_numpy(mask).to(DEV),
+                Mp=Mp, Np=Np, bm=bm, packed=None)
+            check(binary, "staging f32-device declined binary operands")
+            return Y1, Y2
+        operands = [binary_as_uint8(A) for A in driver._masked_operands(Y, mask)
+                    if A is not None]
+        check(all(U is not None for U in operands), f"staging {how} declined binary operands")
+        if how == "host":
+            out = [torch.from_numpy(_pack_host(U, Mp, Np, bm)).to(DEV) for U in operands]
+        else:
+            out = [_pack_tensor(torch.from_numpy(U).to(DEV), Mp, Np, bm) for U in operands]
+        return out[0], out[1] if mask is not None else None
+    from nbmf_mm_tpu_torch.utils.validation import check_array
+
+    m, n = X.shape
+    bm, Mp, Np = cs.plan_packing(m, n)
+    X64, check_s = timed(lambda: check_array(X, accept_sparse="csr", dtype=np.float64))
+    _, range_s = timed(lambda: bool(np.all((X64 >= 0) & (X64 <= 1))))
+    _, cast_s = timed(lambda: np.asarray(X64, dtype=np.float32))
+    del X64
+    _, host_scan_s = timed(lambda: binary_as_uint8(X))
+    Xd, copy_s = timed(lambda: torch.from_numpy(X).to(DEV))
+    _, dev_scan_s = timed(lambda: driver._exactly_binary(Xd))
+    del Xd
+    _, loop_s = timed(lambda: solve(pm, HEADLINE["k"], max_iter=FIT_SWEEPS, tol=0.0,
+                                    random_state=0, device_results=True, device=DEV))
+    print(f"set-up: NBMF.fit's check_array to float64 {check_s:.3f} s, its [0,1] range check "
+          f"{range_s:.3f} s, solve's cast back to float32 {cast_s:.3f} s; binary scan on the "
+          f"host (binary_as_uint8) {host_scan_s:.3f} s, on the card {dev_scan_s:.4f} s; the "
+          f"{X.nbytes / 1e6:.0f} MB pageable float32 copy {copy_s:.3f} s; {FIT_SWEEPS}-sweep "
+          f"solve on words already on the card (inits, loop, safeguard) {loop_s:.3f} s "
+          f"[{card}]", flush=True)
+    mask = (np.random.default_rng(12).random((m, n)) < 0.8).astype(np.float32)
+    for label, mk in (("unmasked", None), ("parity-masked", mask)):
+        words, lines = {}, []
+        for how in HOST_STAGINGS:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, seconds = timed(lambda: stage(X, mk, how))
+            peak = torch.cuda.max_memory_allocated() - base
+            words[how] = out
+            lines.append(f"{how} {seconds:.3f} s, peak {peak / 1e6:.1f} MB")
+        first = words[HOST_STAGINGS[0]]
+        same = all(torch.equal(a, b) for w in words.values() for a, b in zip(w, first)
+                   if a is not None)
+        print(f"set-up: staging the {label} headline matrix from host numpy to words on the "
+              f"card: {'; '.join(lines)}; identical words {same}; solve uses "
+              f"{HOST_STAGINGS[0]!r} [{card}]", flush=True)
+        check(same, f"the {label} stagings give different words")
+        del words, first
+
+
+def packed_input_phase(NBMF, solve, X, lastfm, lastfm_mask, binary_est, binary_params,
+                       binary_wall, dense_solves, card, cs, ds, errors) -> dict:
+    """Phase 8.  Returns the launches per kernel, summed over its runs, each
+    counted with the counters set to 0 just before and read just after."""
+    import scipy.sparse as sp
+
+    total = {}
+    S, csr_s = timed(lambda: sp.csr_matrix(X))
+    print(f"input: the headline matrix as scipy.sparse CSR: {S.nnz} stored entries, built in "
+          f"{csr_s:.2f} s [{card}]", flush=True)
+    pm = input_fits(NBMF, X, S, binary_est, binary_params, binary_wall, total, card, cs, ds)
+    input_packers(solve, X, S, pm, dense_solves["headline"], total, card, cs, ds)
+    input_sparse_masked(solve, lastfm, lastfm_mask, dense_solves, total, card, cs, ds)
+    input_contract_errors(solve, X, S, pm, card)
+    del S
+    setup_breakdown(solve, X, pm, card, cs)
+    del pm
+    scale_run(solve, total, card, cs, ds, errors)
+    return total
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no CUDA card")
@@ -894,15 +1246,23 @@ def main() -> None:
     print(card, flush=True)
     nvcc = subprocess.run(["bash", "-c", "nvcc --version || /usr/local/cuda/bin/nvcc --version"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from nbmf_mm_tpu_torch import NBMF, FoldInServer, solve
+
+    # A solve turns TF32 off for its own duration and leaves the process's
+    # switches as it found them; the script's own comparisons then run with
+    # them off.
+    tf32 = lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    before = tf32()
+    solve(np.eye(8, dtype=np.float32), 2, max_iter=2, backend="plain", device=DEV)
+    after = tf32()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc {nvcc.splitlines()[-1] if nvcc else 'not found'}; "
-          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
-
-    from nbmf_mm_tpu_torch import NBMF, FoldInServer, solve
+          f"allow_tf32 (matmul, cudnn) before a solve {before}, after it {after}, "
+          f"for the rest of this run {tf32()}", flush=True)
+    check(before == after == (True, True), "a solve did not restore the TF32 switches")
     from nbmf_mm_tpu_torch.ops import _build
     from nbmf_mm_tpu_torch.ops import cuda_sweep as cs
     from nbmf_mm_tpu_torch.ops import dense_sweep as ds
@@ -938,9 +1298,10 @@ def main() -> None:
 
     # ------------------------------------------------------ 4. main paths
     # Launches per kernel, summed over the three main-path runs.
-    binary_counts = binary_main_path(NBMF, X, card, cs, ds)
+    binary_est, binary_params, binary_wall, binary_counts = binary_main_path(NBMF, X, card, cs,
+                                                                            ds)
     model, dense_counts = dense_main_path(NBMF, P, card, cs, ds)
-    packed_vs_dense_solve(solve, X, lastfm, card)
+    dense_input_solves, lastfm_mask = packed_vs_dense_solve(solve, X, lastfm, card)
     server, plain_server, requests, weighted, serving_counts = serving_path(
         FoldInServer, model, card, cs, ds)
     launches = {name: binary_counts[name] + dense_counts[name] + serving_counts[name]
@@ -979,6 +1340,15 @@ def main() -> None:
                                   timed=(m, n, k) == PROBE_SIZES[-1]))
     launches.update(measurement_path(card, cs, ds, pr))
     print(f"measurement path: {time.perf_counter() - t7:.1f} s [{card}]", flush=True)
+
+    # ------------------------------------------ 8. packed and sparse input
+    t8 = time.perf_counter()
+    input_counts = packed_input_phase(NBMF, solve, X, lastfm, lastfm_mask, binary_est,
+                                      binary_params, binary_wall, dense_input_solves, card, cs,
+                                      ds, errors)
+    for name in PATH_KERNELS:
+        launches[name] += input_counts[name]
+    print(f"packed and sparse input: {time.perf_counter() - t8:.1f} s [{card}]", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
     kernels = [

@@ -11,14 +11,20 @@ are CUDA kernels built from ``ops/csrc/`` at first use
 (:mod:`nbmf_mm_tpu_torch.ops.cuda_sweep`,
 :mod:`nbmf_mm_tpu_torch.ops.dense_sweep`).  Serving folds new rows in
 against a fitted model through the same W-pass kernels
-(:class:`FoldInServer`, :func:`fold_in_fused`).
+(:class:`FoldInServer`, :func:`fold_in_fused`).  Data that is packed already
+or sparse (:class:`PackedMatrix` and its packers, ``scipy.sparse`` input)
+reaches the packed loop without a dense copy
+(:mod:`nbmf_mm_tpu_torch.ops.packed`).
 
 Public surface: ``NBMF``/``NBMFMM``, :func:`solve`, :func:`nbmf_mm_solver`,
-:class:`SolverResult`, :class:`FoldInServer`, :func:`fold_in_fused`.
+:class:`SolverResult`, :class:`PackedMatrix`, :func:`pack_matrix`,
+:func:`pack_matrix_chunked`, :func:`pack_matrix_sparse`,
+:class:`FoldInServer`, :func:`fold_in_fused`.
 """
 
 from .models.estimator import NBMF, NBMFMM
 from .models.serving import FoldInServer, fold_in_fused
+from .ops.packed import PackedMatrix, pack_matrix, pack_matrix_chunked, pack_matrix_sparse
 from .solver.driver import SolverResult, nbmf_mm_solver, solve
 
 __version__ = "0.1.0"
@@ -29,6 +35,10 @@ __all__ = [
     "nbmf_mm_solver",
     "solve",
     "SolverResult",
+    "PackedMatrix",
+    "pack_matrix",
+    "pack_matrix_chunked",
+    "pack_matrix_sparse",
     "FoldInServer",
     "fold_in_fused",
     "__version__",

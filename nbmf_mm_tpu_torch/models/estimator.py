@@ -18,8 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import cuda_sweep as cs
+from ..ops.packed import PackedMatrix
 from ..ops.updates import fold_in_w_update
-from ..solver.driver import _resolve_device, _resolve_dtype, _resolve_precision, solve
+from ..solver.driver import (
+    _resolve_backend,
+    _resolve_dtype,
+    _resolve_precision,
+    ieee_fp32_products,
+    solve,
+)
 from ..utils.validation import (
     check_array,
     check_is_fitted,
@@ -106,10 +114,19 @@ class NBMFMM(*_BASES):
     precision : optional
         ``None`` or ``"highest"``: IEEE fp32 products.
     mesh : must be None
+    mesh_axes : (str, str), default ("rows", "cols")
+        Stored for the reference's parameter set; unused while ``mesh`` is.
     backend : {"auto", "fused", "plain"}, default="auto"
     packed : {None, False, True}, default=None
         Stream exactly-binary operands as packed words (``None``), always
         dense (``False``), or require packing (``True``); see ``solve``.
+    solver_options : dict, optional
+        Extra keyword arguments that ``fit`` forwards to ``solve`` (for
+        example ``device_results``).  They override the constructor's on a
+        key collision.
+    use_numexpr, use_numba, projection_backend : ignored
+        Legacy flags of the reference's README, accepted so that calls
+        carry over.
     device : str or torch.device, default="cuda"
         Where ``fit`` and ``transform`` run.
     """
@@ -133,8 +150,13 @@ class NBMFMM(*_BASES):
         dtype=None,
         precision=None,
         mesh=None,
+        mesh_axes=("rows", "cols"),
         backend="auto",
         packed=None,
+        solver_options=None,
+        use_numexpr=None,
+        use_numba=None,
+        projection_backend=None,
         device="cuda",
     ):
         self.n_components = n_components
@@ -154,25 +176,38 @@ class NBMFMM(*_BASES):
         self.dtype = dtype
         self.precision = precision
         self.mesh = mesh
+        self.mesh_axes = mesh_axes
         self.backend = backend
         self.packed = packed
+        self.solver_options = solver_options
+        self.use_numexpr = use_numexpr
+        self.use_numba = use_numba
+        self.projection_backend = projection_backend
         self.device = device
 
     # ------------------------------------------------------------------ fit
     def fit(self, X, y=None, mask=None):
-        """Fit the NBMF model to binary (or [0,1]-valued) data ``X``."""
-        X = check_array(X, accept_sparse="csr", dtype=np.float64)
-        values = X.data if hasattr(X, "toarray") else X
-        if not np.all((values >= 0) & (values <= 1)):
-            raise ValueError("X must be binary")
+        """Fit the NBMF model to binary (or [0,1]-valued) data ``X``.
+
+        ``X`` may also be a :class:`~nbmf_mm_tpu_torch.ops.packed.PackedMatrix`
+        (binary by construction; ``solve`` enforces its contract) or a
+        ``scipy.sparse`` matrix, which goes to ``solve`` as it is: routings
+        that run the packed loop pack it straight from its structure and
+        every other routing densifies it, with the dense-input result
+        either way.
+        """
+        if not isinstance(X, PackedMatrix):
+            X = check_array(X, accept_sparse="csr", dtype=np.float64)
+            values = X.data if hasattr(X, "toarray") else X
+            if not np.all((values >= 0) & (values <= 1)):
+                raise ValueError("X must be binary")
 
         # Canonicalize and *store* the normalized orientation (reference
         # _base.py:94-95).
         orientation = self._normalize_orientation(self.orientation)
         self.orientation = orientation
 
-        result = solve(
-            X,
+        solve_kwargs = dict(
             n_components=self.n_components,
             max_iter=self.max_iter,
             tol=self.tol,
@@ -194,6 +229,8 @@ class NBMFMM(*_BASES):
             packed=self.packed,
             device=self.device,
         )
+        solve_kwargs.update(self.solver_options or {})
+        result = solve(X, **solve_kwargs)
         self._set_fitted(result.W, result.H, result.losses, result.n_iter,
                          converged=result.converged, fit_time=result.time_elapsed)
         self.solver_result_ = result
@@ -201,12 +238,13 @@ class NBMFMM(*_BASES):
 
     def _set_fitted(self, W, H, losses, n_iter, *, converged, fit_time):
         """Store the fitted attributes of the reference estimator."""
-        losses = list(losses)
+        if not isinstance(losses, torch.Tensor):  # a tensor under device_results
+            losses = list(losses)
         self.W_ = W
         self.components_ = H
         self.loss_curve_ = losses
         self.objective_history_ = losses  # backward-compat alias
-        self.loss_ = losses[-1] if losses else np.inf
+        self.loss_ = losses[-1] if len(losses) else np.inf
         self.n_iter_ = n_iter
         self.reconstruction_err_ = self.loss_
         self.converged_ = converged
@@ -238,13 +276,13 @@ class NBMFMM(*_BASES):
     def _use_fused_transform(self, n_entries: int, dtype: torch.dtype,
                              device: torch.device) -> bool:
         """Route ``transform`` through the fused fold-in kernels?  Always
-        under ``backend="fused"``; under ``"auto"`` for float32 on a CUDA
-        device from ``_FUSED_TRANSFORM_MIN_ENTRIES`` entries; never under
-        ``"plain"``."""
-        if self.backend == "fused":
-            return True
-        return (self.backend == "auto" and device.type == "cuda" and dtype == torch.float32
-                and n_entries >= _FUSED_TRANSFORM_MIN_ENTRIES)
+        under ``backend="fused"`` (which raises for a rank above the
+        kernels' cap); under ``"auto"`` where ``solve`` would take the fused
+        loop (float32 on a CUDA device, a rank within the cap) from
+        ``_FUSED_TRANSFORM_MIN_ENTRIES`` entries; never under ``"plain"``."""
+        route = _resolve_backend(self.backend, dtype, device, True, k=self.n_components)
+        return route == "fused" and (self.backend == "fused"
+                                     or n_entries >= _FUSED_TRANSFORM_MIN_ENTRIES)
 
     def transform(self, X, mask=None):
         """Fold in new data: find W for ``X`` with fitted ``components_`` held
@@ -264,7 +302,7 @@ class NBMFMM(*_BASES):
 
         dtype = _resolve_dtype(self.dtype)
         _resolve_precision(self.precision)
-        device = _resolve_device(self.device)
+        device = cs.resolve_device(self.device)
         W0t = self._fold_in_init(X.shape[0], dtype)
         if self._use_fused_transform(X.size, dtype, device):
             from .serving import fold_in_fused
@@ -279,7 +317,8 @@ class NBMFMM(*_BASES):
         else:
             mt = torch.as_tensor(np.asarray(mask, dtype=np.float64), device=device).to(dtype)
             Ym, Ym2 = Xt * mt, (1.0 - Xt) * mt
-        W = _transform_core(H, Ym, Ym2, W0t.to(device), 1e-8, n_iter=_FOLD_IN_ITERS)
+        with ieee_fp32_products():
+            W = _transform_core(H, Ym, Ym2, W0t.to(device), 1e-8, n_iter=_FOLD_IN_ITERS)
         return W.cpu().numpy()
 
     def inverse_transform(self, W):

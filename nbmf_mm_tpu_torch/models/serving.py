@@ -34,7 +34,12 @@ import torch
 from ..ops import cuda_sweep as cs
 from ..ops import dense_sweep as ds
 from ..ops.updates import fold_in_w_update
-from ..solver.driver import _not_ported, _resolve_backend, _resolve_device, _resolve_dtype
+from ..solver.driver import (
+    _not_ported,
+    _resolve_backend,
+    _resolve_dtype,
+    ieee_fp32_products,
+)
 from ..utils.validation import check_is_fitted, densify
 
 __all__ = ["FoldInServer", "fold_in_fused"]
@@ -119,6 +124,7 @@ def _zero_pad_columns(W0t: torch.Tensor, rows: int) -> torch.Tensor:
     return W0t
 
 
+@ieee_fp32_products()
 def fold_in_fused(
     H,
     X,
@@ -142,13 +148,13 @@ def fold_in_fused(
     per_row_loglik (rows,))`` as numpy arrays.
     """
     dtype = _resolve_dtype(dtype)
-    device = _resolve_device(device)
-    route = _resolve_backend("fused", dtype, device, True)
+    device = cs.resolve_device(device)
+    k = H.shape[0]
+    route = _resolve_backend("fused", dtype, device, True, k=k)
     X = np.asarray(densify(X))
     if mask is not None:
         mask = np.asarray(densify(mask))
     rows, n_features = X.shape
-    k = H.shape[0]
     bm, Bp, Np = cs.plan_packing(rows, n_features)
     if W0t is None:
         gen = torch.Generator().manual_seed(int(random_state))
@@ -176,8 +182,9 @@ class FoldInServer:
     random_state : seed of each bucket's U(0.1, 0.9) start ``(k, bucket)``
     dtype : ``"float32"`` (default) or ``"float64"``
     backend : {"auto", "fused", "plain"} — ``"auto"`` serves through the
-        kernels for float32 on a CUDA device and through the plain fold-in
-        otherwise (see ``solve``)
+        kernels for float32 on a CUDA device at a rank within the kernels'
+        cap and through the plain fold-in otherwise; ``"fused"`` raises for
+        a rank above the cap (see ``solve``)
     packed : ``None`` (default) packs each exactly-binary chunk on the host
         and streams its words through ``w_terms_packed``, and streams every
         other chunk dense through ``w_terms``; ``True`` requires every chunk
@@ -210,10 +217,10 @@ class FoldInServer:
         else:
             H = model_or_H
         self.dtype = _resolve_dtype(dtype)
-        self.device = _resolve_device(device)
-        self.route = _resolve_backend(backend, self.dtype, self.device, True, packed)
-        self.packed = packed
+        self.device = cs.resolve_device(device)
         self.k, self.n_features = H.shape
+        self.route = _resolve_backend(backend, self.dtype, self.device, True, packed, self.k)
+        self.packed = packed
         self.n_iter = int(n_iter)
         self.buckets = tuple(sorted(buckets))
         self.random_state = 0 if random_state is None else int(random_state)
@@ -239,6 +246,7 @@ class FoldInServer:
                                    n_real=self.n_features, bm=bm)
         return W[:rows].cpu().numpy(), scores[:rows].cpu().numpy()
 
+    @ieee_fp32_products()
     def transform(self, X, mask=None):
         """Fold in new rows; returns ``(W, per_row_loglik)`` as numpy arrays.
 

@@ -1,4 +1,6 @@
-"""Sweep math, simplex projections and the packed and dense sweep kernels."""
+"""Sweep math, simplex projections, the packed and dense sweep kernels, and
+packed input (:mod:`~nbmf_mm_tpu_torch.ops.packed`: ``PackedMatrix`` and the
+packers)."""
 
 from .projection import project_columns_simplex_duchi, project_simplex_duchi
 from .updates import fold_in_w_update, map_objective, mm_sweep, precompute_masked_terms

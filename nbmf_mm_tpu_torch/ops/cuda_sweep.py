@@ -37,6 +37,7 @@ import torch
 __all__ = [
     "LAUNCHES",
     "PACKED_WORD_BITS",
+    "resolve_device",
     "round_up",
     "plan_packing",
     "pack_bits",
@@ -68,6 +69,19 @@ W_TILE = 32
 # walked one word row (32 data rows) at a time.
 H_COLS = 64
 WAVES = 2  # rounds of resident blocks each pass's grid should fill at least
+
+
+def resolve_device(device) -> torch.device:
+    """An explicit device; asking for CUDA without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' was requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be a CPU or CUDA device, got {device}")
+    return device
 
 
 def round_up(x: int, m: int) -> int:

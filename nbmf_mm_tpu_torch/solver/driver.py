@@ -21,10 +21,16 @@ beta-dir loop on ``Y.T`` with the factors swapped, as the reference does.
 Random inits come from a CPU ``torch.Generator`` seeded with
 ``random_state`` and then move to the device, so a seed gives the same
 inits on the CPU and on the card (they differ from JAX ``PRNGKey`` draws).
+
+Input that is packed already (:class:`~nbmf_mm_tpu_torch.ops.packed.PackedMatrix`)
+or sparse (``scipy.sparse`` data, alone or under a sparse mask) reaches the
+packed loop without a dense copy on the host or the device; every other
+routing of sparse input densifies it and gives the dense-input result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -34,6 +40,12 @@ import torch
 
 from ..ops import cuda_sweep as cs
 from ..ops import dense_sweep as ds
+from ..ops.packed import (
+    PackedMatrix,
+    csr_binary_canonical,
+    pack_matrix_sparse,
+    pack_sparse_words,
+)
 from ..ops.projection import project_columns_simplex_duchi
 from ..ops.updates import (
     clip_upper_interior,
@@ -52,12 +64,31 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
 
 
+@contextlib.contextmanager
+def ieee_fp32_products():
+    """IEEE fp32 matmul products inside, the caller's settings back outside.
+
+    PyTorch's TF32 switches are process-wide, so a solve or a fold-in turns
+    them off only for its own duration and restores what it found on every
+    exit, exceptions included.  Also usable as a decorator.
+    """
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 @dataclass
 class SolverResult:
     """Full solver output (the tuple API of :func:`nbmf_mm_solver` is a view).
 
     ``W`` is ``(m, k)`` and ``H`` is ``(k, n)`` in *external* notation for the
-    requested orientation, as numpy arrays.  ``losses`` has length ``n_iter``.
+    requested orientation, as numpy arrays (tensors on the solve's device
+    under ``device_results=True``).  ``losses`` has length ``n_iter``.  The
+    fields and their order are the JAX package's.
     """
 
     W: np.ndarray
@@ -66,6 +97,8 @@ class SolverResult:
     time_elapsed: float
     n_iter: int
     converged: bool
+    best_restart: int = 0
+    all_final_losses: Optional[np.ndarray] = None
     seed: Optional[int] = None
     extras: dict = field(default_factory=dict)
 
@@ -85,25 +118,14 @@ def _resolve_dtype(dtype) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _resolve_device(device) -> torch.device:
-    """An explicit device; asking for CUDA without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' was requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run on the CPU"
-        )
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"device must be a CPU or CUDA device, got {device}")
-    return device
-
-
 def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device, binary: bool,
-                     packed: Optional[bool] = None) -> str:
+                     packed: Optional[bool] = None, k: Optional[int] = None) -> str:
     """Pick the solver loop: ``"fused"`` or ``"plain"``.
 
     ``"auto"`` takes the fused kernel loop for float32 on a CUDA device and
-    the plain loop for float64 or on the CPU.  The fused loop streams packed
+    the plain loop for float64, on the CPU, or for a rank ``k`` above the
+    kernels' cap (``cuda_sweep.MAX_RANK``); ``"fused"`` with such a rank
+    raises here, before anything is staged.  The fused loop streams packed
     words when the operands are exactly binary (``binary``) and
     ``packed`` is not False, dense operands otherwise.  ``packed=True``
     demands the packed words: it raises for non-binary operands and for the
@@ -115,8 +137,12 @@ def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device, bin
         raise ValueError(f"packed must be None, False or True, got {packed!r}")
     if backend == "fused" and device.type == "cuda" and dtype != torch.float32:
         raise ValueError("backend='fused' on a CUDA device requires dtype=float32")
+    over_cap = k is not None and k > cs.MAX_RANK
+    if backend == "fused" and over_cap:
+        raise ValueError(f"backend='fused' takes ranks up to {cs.MAX_RANK} (the kernels' cap), "
+                         f"got k={k}; use backend='auto' or 'plain'")
     if backend == "fused" or (backend == "auto" and dtype == torch.float32
-                              and device.type == "cuda"):
+                              and device.type == "cuda" and not over_cap):
         route = "fused"
     else:
         route = "plain"
@@ -253,43 +279,150 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, *, packed: bool, alpha, beta, to
     return W, H, losses, it, done
 
 
+def _renormalize_drifted(A: torch.Tensor, dim: int) -> torch.Tensor:
+    """Divide ``A`` by its sums along ``dim`` where they drifted more than
+    1e-9 from 1 (all-zero slices stay as they are).  Only the drift, one
+    scalar, is read back to the host."""
+    tiny, tol = 1e-12, 1e-9
+    if A.numel() == 0:
+        return A
+    sums = A.sum(dim=dim, keepdim=True)
+    drift = float((sums - 1.0).abs().max())
+    if np.isfinite(drift) and drift > tol:
+        safe = sums > tiny
+        A = torch.where(safe, A / torch.where(safe, sums, 1.0), A)
+    return A
+
+
 def _final_simplex_safeguard(W_final, H_final, orientation):
     """Renormalization safeguard replicating ``_solver.py:186-213``: if the
-    simplex factor drifted more than 1e-9 from unit sums, renormalize
-    (guarding degenerate all-zero slices).  Numpy arrays in and out."""
-    tiny, tol = 1e-12, 1e-9
+    simplex factor drifted from unit sums, renormalize it.  Tensors in and
+    out, on their device."""
     if orientation == "beta-dir":
-        if W_final.size:
-            row_sums = W_final.sum(axis=1, keepdims=True)
-            dev = float(np.max(np.abs(row_sums - 1.0)))
-            if np.isfinite(dev) and dev > tol:
-                safe = row_sums > tiny
-                if bool(np.any(safe)):
-                    W_final = np.where(safe, W_final / np.where(safe, row_sums, 1.0), W_final)
-    else:
-        if H_final.size:
-            col_sums = H_final.sum(axis=0, keepdims=True)
-            dev = float(np.max(np.abs(col_sums - 1.0)))
-            if np.isfinite(dev) and dev > tol:
-                safe = col_sums > tiny
-                if bool(np.any(safe)):
-                    H_final = np.where(safe, H_final / np.where(safe, col_sums, 1.0), H_final)
-    return W_final, H_final
+        return _renormalize_drifted(W_final, 1), H_final
+    return W_final, _renormalize_drifted(H_final, 0)
 
 
-def _to_tensor(A, dtype, device) -> torch.Tensor:
+def _is_scipy_sparse(A) -> bool:
+    """A scipy.sparse matrix or array (scipy is imported only for an object
+    that has ``toarray``)."""
+    if isinstance(A, (np.ndarray, torch.Tensor)) or not hasattr(A, "toarray"):
+        return False
+    import scipy.sparse as sp
+
+    return sp.issparse(A)
+
+
+def _to_tensor(A, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A dense operand as a tensor of the compute dtype on ``device``."""
     if isinstance(A, torch.Tensor):
         return A.to(device=device, dtype=dtype)
-    if hasattr(A, "toarray") or type(A).__name__ == "PackedMatrix":
-        raise _not_ported("PackedMatrix and scipy.sparse input", "Packed input and sparse ingest")
+    if hasattr(A, "toarray"):
+        A = A.toarray()
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     return torch.as_tensor(np.asarray(A, dtype=np_dtype), device=device)
 
 
 def _pad(A: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    return torch.nn.functional.pad(A, (0, cols - A.shape[1], 0, rows - A.shape[0]))
+    return torch.nn.functional.pad(A, (0, cols - A.shape[1], 0, rows - A.shape[0])).contiguous()
 
 
+def _masked_operands(Y, mask):
+    """``(Ym, Ym2)``: ``Y`` or ``Y * mask``, and ``(1 - Y) * mask`` when
+    masked, on numpy arrays or tensors alike."""
+    if mask is None:
+        return Y, None
+    return Y * mask, (1.0 - Y) * mask
+
+
+def _stage_dense(Y: torch.Tensor, mask: Optional[torch.Tensor], *, Mp: int, Np: int, bm: int,
+                 packed: Optional[bool]):
+    """Stage dense operands on their device for the fused loop: ``(Y1, Y2,
+    use_packed)``, words when ``Ym``/``Ym2`` are exactly binary and
+    ``packed`` allows it, else the padded dense operands.  Packing needs them
+    exactly 0/1 after masking, so values at unobserved entries do not matter.
+
+    Host input reaches this as a plain copy of the dense operands: copying
+    float32 and packing on the card beat packing on the host and copying
+    uint8 on an H100 (``PERF.md``, section 5; ``chip_smoke.py`` times the
+    three).
+    """
+    Ym, Ym2 = _masked_operands(Y, mask)
+    use_packed = packed is not False and _exactly_binary(Ym) and _exactly_binary(Ym2)
+    stage = (lambda A: cs.pack_bits(_pad(A, Mp, Np), bm)) if use_packed else (
+        lambda A: _pad(A, Mp, Np))
+    return stage(Ym), None if Ym2 is None else stage(Ym2), use_packed
+
+
+def _check_packed_contract(*, orientation, mask, packed, dtype) -> None:
+    """What the words of a :class:`PackedMatrix` cannot express."""
+    if orientation != "beta-dir":
+        raise ValueError("PackedMatrix input supports orientation='beta-dir' only "
+                         "(pack the transposed matrix for dir-beta)")
+    if mask is not None:
+        raise ValueError("PackedMatrix input does not take a separate mask")
+    if packed is False:
+        raise ValueError("packed=False contradicts a PackedMatrix input")
+    if dtype != torch.float32:
+        raise ValueError("PackedMatrix input requires float32 compute (the packed kernels "
+                         f"are float32; got dtype={dtype})")
+
+
+def _packed_words(pm: PackedMatrix, route: str, device: torch.device) -> torch.Tensor:
+    """The words of a :class:`PackedMatrix` as the staged operand on
+    ``device``, after checking that they were packed for the geometry
+    ``solve`` plans (stripe-local bit planes only combine with the same
+    ``block_m``)."""
+    if route != "fused":
+        raise ValueError("PackedMatrix input requires the fused loop (backend='fused', or "
+                         "'auto' resolving to it: float32 on a CUDA device at a rank up to "
+                         f"{cs.MAX_RANK})")
+    m, n = pm.shape
+    bm, Mp, Np = cs.plan_packing(m, n)
+    if (pm.block_m != bm or tuple(pm.padded_shape) != (Mp, Np)
+            or pm.words.dtype != torch.int32):
+        raise ValueError(
+            f"PackedMatrix(block_m={pm.block_m}, padded {tuple(pm.padded_shape)}, "
+            f"{pm.words.dtype}) does not match the geometry planned for {(m, n)}: "
+            f"block_m={bm}, padded {(Mp, Np)}, int32 words; rebuild it with pack_matrix")
+    return pm.words.to(device).contiguous()
+
+
+def _route_sparse(Y, mask, *, eligible: bool, packed: Optional[bool], device: torch.device):
+    """Route scipy.sparse data: ``(Y, mask, sparse_masked)``.
+
+    When the solve runs the packed fused loop anyway (``eligible``), binary
+    data without a mask packs straight from its structure into a
+    :class:`PackedMatrix`, and binary data under a binary scipy.sparse mask
+    comes back as the pair of canonical CSRs (``sparse_masked``), whose
+    operands ``solve`` packs.  Everything else (another routing, stored
+    values other than 0 and 1) densifies and gives the dense-input result,
+    unless ``packed=True`` demanded the words."""
+    if eligible and mask is None:
+        try:
+            return pack_matrix_sparse(Y, device=device), None, False
+        except ValueError:
+            if packed is True:
+                raise
+    elif eligible and _is_scipy_sparse(mask):
+        Yb, Mb = csr_binary_canonical(Y), csr_binary_canonical(mask)
+        if Yb is not None and Mb is not None:
+            return Yb, Mb, True
+        if packed is True:
+            raise ValueError("packed=True with sparse data and a sparse mask requires "
+                             "exactly binary stored values")
+    return Y.toarray(), mask, False
+
+
+def _results(W, H, losses, *, device_results: bool):
+    """External factors and losses as they are returned: tensors on their
+    device, or numpy arrays and a list of floats."""
+    if device_results:
+        return W, H, losses
+    return W.cpu().numpy(), H.cpu().numpy(), [float(x) for x in losses.cpu().numpy()]
+
+
+@ieee_fp32_products()
 def solve(
     Y,
     n_components: int,
@@ -322,6 +455,14 @@ def solve(
     Semantics mirror the JAX package's ``solve`` for the options this package
     supports:
 
+    - ``Y``: a dense array or tensor; a ``scipy.sparse`` matrix; or a
+      :class:`~nbmf_mm_tpu_torch.ops.packed.PackedMatrix`, whose words are
+      the staged operand (beta-dir, no separate mask, float32, the fused loop
+      only; its geometry must be the one ``pack_matrix`` plans).  Binary
+      sparse data packs straight from its structure when the solve runs the
+      packed fused loop anyway (beta-dir, float32, ``packed`` not False, no
+      mask or a binary ``scipy.sparse`` mask); on every other routing it
+      densifies.  All of these give the dense-input result bitwise;
     - ``orientation``: ``"beta-dir"`` or ``"dir-beta"`` (solved as beta-dir on
       ``Y.T``; a custom init then needs both factors);
     - ``mask`` with ``mask_mode`` ``"parity"`` or ``"corrected"``; an all-zero
@@ -330,7 +471,8 @@ def solve(
     - ``W_init``/``H_init``, renormalized with the zero-column guard;
       ``max_iter=0`` returns the initial factors untouched;
     - ``dtype``: float32 (default) or float64; ``precision``: ``None`` or
-      ``"highest"`` (IEEE fp32 products, TF32 off);
+      ``"highest"`` (IEEE fp32 products: TF32 is off inside the call and the
+      caller's settings are restored on exit);
     - ``device``: an explicit ``torch.device`` (default ``"cuda"``, which
       raises on a machine without a GPU; nothing moves to the CPU unasked);
     - ``backend``: ``"auto"``, ``"fused"`` (the kernel loop; CPU tensors go
@@ -340,10 +482,12 @@ def solve(
       if given) as packed words and all others dense; ``False`` streams
       dense; ``True`` requires binary operands and the fused loop, and
       raises otherwise.  Packed and dense results are bitwise equal.
-      ``extras["packed"]`` records the choice.
+      ``extras["packed"]`` records the choice;
+    - ``device_results``: return ``W``, ``H`` and ``losses`` as tensors on
+      ``device``; only ``n_iter``, ``converged`` and the safeguard's drift
+      are read back to the host.
 
-    ``n_init > 1``, ``return_all``, ``mesh``, ``device_results``,
-    ``PackedMatrix``/``scipy.sparse`` input, ``dtype="bfloat16"`` and
+    ``n_init > 1``, ``return_all``, ``mesh``, ``dtype="bfloat16"`` and
     precisions ``"default"``/``"high"`` raise ``NotImplementedError``.
     """
     if orientation not in _ORIENTATIONS:
@@ -358,19 +502,31 @@ def solve(
         raise _not_ported("n_init > 1 and return_all", "Restarts and grids")
     if mesh is not None:
         raise _not_ported("mesh", "Multi-GPU")
-    if device_results:
-        raise _not_ported("device_results", "Device-resident results")
     _resolve_precision(precision)
     dtype = _resolve_dtype(dtype)
-    device = _resolve_device(device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = cs.resolve_device(device)
+    k = int(n_components)
+    if type(Y).__name__ == "PackedMatrix" and not isinstance(Y, PackedMatrix):
+        raise TypeError(
+            f"{type(Y).__module__}.PackedMatrix is another package's: convert its words with "
+            "nbmf_mm_tpu_torch.utils.interop.packed_from_reference"
+        )
+    if isinstance(Y, PackedMatrix):
+        _check_packed_contract(orientation=orientation, mask=mask, packed=packed, dtype=dtype)
+    route = _resolve_backend(backend, dtype, device, True, packed, k)
 
     t_start = time.time()
-    Y = _to_tensor(Y, dtype, device)
-    if mask is not None:
-        mask = _to_tensor(mask, dtype, device)
+    sparse_masked = False  # Y and mask as canonical binary CSRs
+    if _is_scipy_sparse(Y):
+        eligible = (orientation == "beta-dir" and packed is not False
+                    and dtype == torch.float32 and route == "fused")
+        Y, mask, sparse_masked = _route_sparse(Y, mask, eligible=eligible, packed=packed,
+                                               device=device)
+    words = _packed_words(Y, route, device) if isinstance(Y, PackedMatrix) else None
+    if words is None and not sparse_masked:
+        Y = _to_tensor(Y, dtype, device)
+        if mask is not None:
+            mask = _to_tensor(mask, dtype, device)
 
     transposed = orientation == "dir-beta"
     if transposed:
@@ -385,7 +541,6 @@ def solve(
             W_init, H_init = np.asarray(H_init).T, np.asarray(W_init).T
 
     m, n = Y.shape
-    k = int(n_components)
     seed = (int(np.random.SeedSequence().entropy % (2**63)) if random_state is None
             else int(random_state))
 
@@ -409,7 +564,9 @@ def solve(
     if mask is None:
         n_obs = float(m * n)
     else:
-        n_obs = float(torch.count_nonzero(mask))
+        # A canonical binary CSR is counted by its stored nonzeros, never
+        # from a dense copy.
+        n_obs = float(mask.count_nonzero() if sparse_masked else torch.count_nonzero(mask))
         if n_obs == 0.0:
             raise ValueError(
                 "mask has no observed entries (all zeros): the per-entry "
@@ -417,34 +574,37 @@ def solve(
             )
 
     if max_iter <= 0:
-        W_final, H_final = W0.T.cpu().numpy(), H0.cpu().numpy()
-        if transposed:
-            W_final, H_final = H_final.T, W_final.T
-        return SolverResult(W=W_final, H=H_final, losses=[], time_elapsed=time.time() - t_start,
-                            n_iter=0, converged=False, seed=seed)
-
-    # The operands the kernels stream (the JAX package's driver.py:957-977):
-    # Ym = Y or Y*mask, Ym2 = (1-Y)*mask when masked; corrected mode's Yc is
-    # Ym2 itself.  Packing needs them exactly 0/1 after masking, so values at
-    # unobserved entries do not matter.
-    if mask is None:
-        Ym, Ym2 = Y, None
-    else:
-        Ym, Ym2 = Y * mask, (1.0 - Y) * mask
-    binary = (packed is not False and backend != "plain"
-              and _exactly_binary(Ym) and _exactly_binary(Ym2))
-    route = _resolve_backend(backend, dtype, device, binary, packed)
-    use_packed = route == "fused" and binary
+        W_final, H_final = (H0.T, W0) if transposed else (W0.T, H0)
+        W_final, H_final, losses = _results(
+            W_final, H_final, torch.zeros(0, dtype=dtype, device=device),
+            device_results=device_results)
+        return SolverResult(W=W_final, H=H_final, losses=losses,
+                            time_elapsed=time.time() - t_start, n_iter=0, converged=False,
+                            seed=seed)
 
     hypers = dict(alpha=alpha, beta=beta, tol=tol, eps=eps, n_obs=n_obs,
                   max_iter=max_iter, projection=projection, verbose=verbose)
     if route == "fused":
+        # The operands the kernels stream (the JAX package's driver.py:957-977):
+        # Y1 = Ym = Y or Y*mask, Y2 = Ym2 = (1-Y)*mask when masked; corrected
+        # mode's Yc is Ym2 itself.
         bm, Mp, Np = cs.plan_packing(m, n)
-        stage = (lambda A: cs.pack_bits(_pad(A, Mp, Np), bm)) if use_packed else (
-            lambda A: _pad(A, Mp, Np))
-        Y1 = stage(Ym)
-        Y2 = None if Ym2 is None else stage(Ym2)
-        del Ym, Ym2
+        if words is not None:
+            Y1, Y2, use_packed = words, None, True
+        elif sparse_masked:
+            # Both operands are sparse too: Ym = Y*mask, Ym2 = mask - Ym, each
+            # packed from row chunks, one transient uint8 chunk at a time.
+            Ym = Y.astype(np.int8).multiply(mask.astype(np.int8)).tocsr()
+            Ym2 = (mask.astype(np.int8) - Ym).tocsr()
+            Y1, Y2 = (torch.from_numpy(pack_sparse_words(A, Mp, Np, bm)).to(device)
+                      for A in (Ym, Ym2))
+            use_packed = True
+            del Ym, Ym2
+        else:
+            Y1, Y2, use_packed = _stage_dense(Y, mask, Mp=Mp, Np=Np, bm=bm, packed=packed)
+            if packed is True and not use_packed:
+                raise ValueError("packed=True requires exactly binary data (and mask)")
+        del Y, mask, words
         W, H, losses, n_iter, done = _solve_core_fused(
             Y1, Y2 if mask_mode == "corrected" else None, Y2,
             _pad(W0, k, Mp), _pad(H0, k, Np), packed=use_packed, m_real=m, n_real=n, bm=bm,
@@ -452,21 +612,20 @@ def solve(
         )
         W, H = W[:, :m], H[:, :n]
     else:
-        del Ym, Ym2
+        use_packed = False
         Ym, Ym2, Yc = precompute_masked_terms(Y, mask, mask_mode)
         W, H, losses, n_iter, done = _solve_core(Ym, Ym2, Yc, W0, H0, n_real=n, **hypers)
 
-    W_final = W.T.cpu().numpy()  # external (m, k)
-    H_final = H.cpu().numpy()
-    if transposed:
-        W_final, H_final = H_final.T, W_final.T
+    W_final, H_final = (H.T, W) if transposed else (W.T, H)  # external (m, k), (k, n)
     W_final, H_final = _final_simplex_safeguard(W_final, H_final, orientation)
     if verbose > 0 and done and n_iter < max_iter:
         print(f"Converged at iteration {n_iter - 1}")
+    W_final, H_final, losses = _results(W_final, H_final, losses[:n_iter],
+                                        device_results=device_results)
     return SolverResult(
         W=W_final,
         H=H_final,
-        losses=[float(x) for x in losses[:n_iter].cpu().numpy()],
+        losses=losses,
         time_elapsed=time.time() - t_start,
         n_iter=n_iter,
         converged=done,

@@ -4,7 +4,11 @@
 scalars) off a fitted JAX-package ``NBMF``, a JAX-package ``SolverResult``
 or a dict with the same names, and returns a fitted
 :class:`~nbmf_mm_tpu_torch.models.estimator.NBMF`.  It never imports JAX.
-The packed-word layout is shared, so words need no conversion either.
+
+:func:`packed_from_reference` turns the fields of a JAX-package
+``PackedMatrix`` into this package's.  The bit layout is shared; the pad
+geometry is not (the JAX package pads the columns to a multiple of 128 and
+may pick another stripe), so the words are cropped or repacked.
 """
 
 from __future__ import annotations
@@ -12,10 +16,13 @@ from __future__ import annotations
 from collections.abc import Mapping
 
 import numpy as np
+import torch
 
 from ..models.estimator import NBMF
+from ..ops import cuda_sweep as cs
+from ..ops.packed import PackedMatrix, pack_matrix_chunked
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "packed_from_reference"]
 
 # Constructor arguments that carry over from a fitted JAX estimator.
 _HYPERPARAMETERS = (
@@ -62,3 +69,53 @@ def from_reference(state, device="cuda", **params) -> NBMF:
         fit_time=float(get("fit_time_", get("time_elapsed", 0.0))),
     )
     return est
+
+
+def _unpack_bits_host(words: np.ndarray, bm: int) -> np.ndarray:
+    """Inverse of ``pack_bits_host`` for whole stripes: ``(S * bm // 32, Np)``
+    int32 words to ``(S * bm, Np)`` uint8."""
+    Mw, Np = words.shape
+    bmw = bm // cs.PACKED_WORD_BITS
+    octets = np.ascontiguousarray(words, dtype=np.int32).view(np.uint8)
+    bits = np.unpackbits(octets.reshape(Mw // bmw, bmw, Np, 4), axis=-1, bitorder="little")
+    return np.moveaxis(bits, -1, 1).reshape(Mw * cs.PACKED_WORD_BITS, Np)
+
+
+def packed_from_reference(words, shape, block_m: int, device="cuda") -> PackedMatrix:
+    """This package's :class:`~nbmf_mm_tpu_torch.ops.packed.PackedMatrix` on
+    ``device`` from a JAX-package one's fields: ``words`` as a numpy array
+    (``np.asarray(pm.words)``), ``shape`` and ``block_m``.
+
+    Where the stripe is the one this package plans, the layout agrees row for
+    row and only the zero pad rows and columns are cropped.  Otherwise the
+    words are unpacked and repacked on the host in row chunks of whole
+    stripes, as uint8, never the whole matrix at once.
+    """
+    words = np.asarray(words)
+    m, n = (int(x) for x in shape)
+    if words.dtype != np.int32 or words.ndim != 2:
+        raise TypeError(f"words must be a 2-D int32 array, got {words.dtype} {words.shape}")
+    rows_ref = words.shape[0] * cs.PACKED_WORD_BITS
+    # The JAX package's effective stripe: block_m shrunk for a short matrix,
+    # then rounded up to a multiple of 128 (its ``_pick_block``).
+    block_m = cs.round_up(min(block_m, cs.round_up(rows_ref, 128)), 128)
+    cs._check_stripe(rows_ref, block_m, "packed_from_reference")
+    bm, Mp, Np = cs.plan_packing(m, n)
+    if rows_ref < m or words.shape[1] < n:
+        raise ValueError(f"words of padded shape {(rows_ref, words.shape[1])} cannot hold "
+                         f"a {(m, n)} matrix")
+    if block_m == bm and rows_ref >= Mp and words.shape[1] >= Np:
+        kept = words[: Mp // cs.PACKED_WORD_BITS, :Np]
+        if words[:, Np:].any() or words[Mp // cs.PACKED_WORD_BITS:].any():
+            raise ValueError("the words' pad rows or columns are not zero")
+        out = torch.tensor(kept, device=cs.resolve_device(device))
+        return PackedMatrix(words=out, shape=(m, n), block_m=bm)
+
+    bmw_ref = block_m // cs.PACKED_WORD_BITS
+
+    def row_chunk(a, b):  # the stripes of the source that hold rows [a, b)
+        first, last = a // block_m, -(-b // block_m)
+        dense = _unpack_bits_host(words[first * bmw_ref: last * bmw_ref], block_m)
+        return dense[a - first * block_m: b - first * block_m, :n]
+
+    return pack_matrix_chunked(row_chunk, m, n, validate=False, device=device)

@@ -15,10 +15,10 @@ import numpy as np
 __all__ = ["check_is_fitted", "check_array", "densify"]
 
 # Entry count above which densifying a sparse input warrants a warning:
-# 2**27 f64 entries is ~1 GB of dense materialization.  `fit` never hits
-# this (`solve` does not take sparse input yet), but `transform`/`score`
-# densify the WHOLE batch in one piece by contract (the seeded W0 draw
-# spans the full batch), which can silently allocate many GB.
+# 2**27 f64 entries is ~1 GB of dense materialization.  `fit` passes sparse
+# input on to `solve` undensified, but `transform`/`score` densify the WHOLE
+# batch in one piece by contract (the seeded W0 draw spans the full batch),
+# which can silently allocate many GB.
 SPARSE_DENSIFY_WARN_ENTRIES = 1 << 27
 
 

@@ -37,7 +37,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys; sys.path.insert(0, %r); import nbmf_mm_tpu_torch, "
         "nbmf_mm_tpu_torch.ops.cuda_sweep, nbmf_mm_tpu_torch.ops.dense_sweep, "
-        "nbmf_mm_tpu_torch.ops._build, nbmf_mm_tpu_torch.models.serving, "
+        "nbmf_mm_tpu_torch.ops._build, nbmf_mm_tpu_torch.ops.packed, "
+        "nbmf_mm_tpu_torch.models.serving, "
         "nbmf_mm_tpu_torch.utils.interop, nbmf_mm_tpu_torch.ops.probes, "
         "nbmf_mm_tpu_torch.utils.profiling, nbmf_mm_tpu_torch.tools.bench_true, "
         "nbmf_mm_tpu_torch.tools.bench_kernels, nbmf_mm_tpu_torch.tools.bench_packed, "
@@ -58,8 +59,10 @@ def test_import_leaves_jax_out():
 
 def test_public_surface():
     for name in ("NBMF", "NBMFMM", "solve", "nbmf_mm_solver", "SolverResult", "FoldInServer",
-                 "fold_in_fused", "__version__"):
+                 "fold_in_fused", "PackedMatrix", "pack_matrix", "pack_matrix_chunked",
+                 "pack_matrix_sparse", "__version__"):
         assert hasattr(nbt, name)
+        assert name in nbt.__all__
     assert nbt.NBMF is nbt.NBMFMM
     assert isinstance(nbt.__version__, str)
 
@@ -131,14 +134,22 @@ def test_resolve_backend_rejects(backend, dtype, device, binary):
          "precision-high", "device_results"],
 )
 def test_options_left_out_raise(kwargs):
+    if kwargs == dict(device_results=True):  # ported since: tensors come back
+        res = nbt.solve(_binary(), 2, max_iter=2, device="cpu", **kwargs)
+        assert all(isinstance(t, torch.Tensor) for t in (res.W, res.H, res.losses))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nbt.solve(_binary(), 2, max_iter=2, device="cpu", **kwargs)
 
 
 def test_sparse_input_not_ported():
+    # Ported since: sparse input gives the dense-input result.
     sp = pytest.importorskip("scipy.sparse")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nbt.solve(sp.csr_matrix(_binary()), 2, max_iter=2, device="cpu")
+    kw = dict(max_iter=2, random_state=0, dtype="float64", device="cpu")
+    dense = nbt.solve(_binary(), 2, **kw)
+    sparse = nbt.solve(sp.csr_matrix(_binary()), 2, **kw)
+    np.testing.assert_array_equal(sparse.W, dense.W)
+    np.testing.assert_array_equal(sparse.H, dense.H)
 
 
 def test_precision_highest_accepted():
