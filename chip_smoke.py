@@ -45,6 +45,21 @@ a CSR mask in both mask modes; the contract errors; the scale run (a
 with the peak device memory held under half of the dense matrix's); and the
 set-up breakdown of a fit from numpy input with the three host stagings.
 
+Phase 9 is restarts and grids, the fourth main path: the five production
+kernels with a leading lane axis ``R`` on the factors, lane by lane bitwise
+against the unbatched kernels and one lane per shape against the plain
+version (the headline with ``R = 4``, lastfm, 1000 x 1234 at k = 17 and 200
+and one word row with ``R`` in 1 and 3, all three mask modes); then, each with
+the launch and lane counters zeroed before and read after, ``NBMF.fit`` with
+``n_init=16`` on the headline binary matrix (its best lane again as a
+standalone ``solve`` from that lane's inits), ``solve(n_init=4,
+return_all=True)`` under dir-beta on masked lastfm, a dense restart fit on
+the mean matrix, ``grid_solve`` over the 6 x 6 (alpha, beta) grid of the
+paper reproduction on masked lastfm (36 cells in one solve, two held against
+standalone solves) and a 4-cell zip grid at the headline; and the times of
+the batched kernels and loops at ``R = 16`` beside their bounds, with the
+peak device memory of the 16-restart fit.
+
 Each phase prints one line or more; any failure raises and the script exits
 non-zero.  The last line is a JSON object with ``"ok": true`` and the
 device; the line before it lists the kernels.
@@ -154,6 +169,21 @@ SCALE_INGEST_LIMIT_S = 60.0  # the host packing alone must stay under this
 # The three ways from host numpy operands to words on the card; solve takes
 # the first.
 HOST_STAGINGS = ("f32-device", "host", "u8-device")
+# Phase 9.  Lanes of the batched kernels checked at the headline, and of the
+# timed calls and the restart fit (16 restarts over one packed data stream,
+# the n_init16 configuration of the repository's bench.py:276-309).
+LANES_CHECKED = 4
+LANES_TIMED = 16
+RESTART_SWEEPS = 50
+# The (alpha, beta) grid of experiments/reproduce_magron2022.py:49-51
+# (ALPHA_GRID x BETA_GRID) at its rank for lastfm (FIG1_K["lastfm"]).
+PAPER_GRID = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0)
+PAPER_LASTFM_K = 8
+# Edge shapes of the lane axis (label, (m, n) or None for lastfm, k), each
+# with R in LANE_EDGE_COUNTS.
+LANE_EDGES = (("lastfm", None, 8), ("ragged k=17", (1_000, 1_234), 17),
+              ("ragged k=200", (1_000, 1_234), 200), ("one-word-row", (32, 40), 4))
+LANE_EDGE_COUNTS = (1, 3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -195,13 +225,20 @@ def tensor_bytes(*tensors) -> int:
 
 
 def zero_counts(*modules) -> None:
+    """Set every launch counter, and every lane counter, of ``modules`` to 0."""
     for module in modules:
-        for name in module.LAUNCHES:
-            module.LAUNCHES[name] = 0
+        for counts in (module.LAUNCHES, getattr(module, "LANES", {})):
+            for name in counts:
+                counts[name] = 0
 
 
 def read_counts(*modules) -> dict:
     return {name: n for module in modules for name, n in module.LAUNCHES.items()}
+
+
+def read_lanes(*modules) -> dict:
+    """Lanes launched per kernel since the counters were zeroed."""
+    return {name: n for module in modules for name, n in module.LANES.items()}
 
 
 def headline_matrix() -> np.ndarray:
@@ -696,22 +733,24 @@ def time_kernels(X, P, k, card, cs, ds):
     return times
 
 
-def loop_ms_per_sweep(name, Y, k, packed, card, cs):
+def loop_ms_per_sweep(name, Y, k, packed, card, cs, lanes=None, runs=(5, 25)):
     """ms/sweep of ``_solve_core_fused`` on operands already staged on the
-    card: CUDA events around runs of 5 and 25 sweeps (tol=0), slope."""
+    card: CUDA events around two runs of ``runs`` sweeps (tol=0), slope.
+    With ``lanes`` the batched loop over that many restarts."""
     from nbmf_mm_tpu_torch.solver.driver import _solve_core_fused
 
     m, n = Y.shape
     bm, Mp, Np = cs.plan_packing(m, n)
     Ym = padded(torch.as_tensor(Y, device=DEV), Mp, Np)
     Y1 = cs.pack_bits(Ym, bm) if packed else Ym
-    W0, H0 = factors(m, n, k, Mp, Np, 3)
+    W0, H0 = factors(m, n, k, Mp, Np, 3) if lanes is None else lane_factors(m, n, k, Mp, Np,
+                                                                           lanes, 3)
     kw = dict(packed=packed, alpha=1.2, beta=1.2, tol=0.0, eps=EPS, n_obs=float(m * n),
               m_real=m, n_real=n, bm=bm, projection="normalize", verbose=0)
     run = lambda sweeps: _solve_core_fused(Y1, None, None, W0, H0, max_iter=sweeps, **kw)
     run(2)
     ms = {}
-    for sweeps in (5, 25):
+    for sweeps in runs:
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -719,12 +758,14 @@ def loop_ms_per_sweep(name, Y, k, packed, card, cs):
         out = run(sweeps)
         end.record()
         torch.cuda.synchronize()
-        check(out[3] == sweeps, f"{name} timing run stopped early")
+        check(bool((torch.as_tensor(out[3]) == sweeps).all()), f"{name} timing run stopped early")
         ms[sweeps] = start.elapsed_time(end)
-    per_sweep = (ms[25] - ms[5]) / 20
-    print(f"timing fused loop ({name}, packed={packed}) at {m}x{n} k={k}: {per_sweep:.3f} "
-          f"ms/sweep ({1e3 / per_sweep:.2f} sweeps/s); 25 sweeps {ms[25]:.1f} ms [{card}]",
-          flush=True)
+    short, long = runs
+    per_sweep = (ms[long] - ms[short]) / (long - short)
+    batch = "" if lanes is None else f", {lanes} lanes"
+    print(f"timing fused loop ({name}, packed={packed}{batch}) at {m}x{n} k={k}: "
+          f"{per_sweep:.3f} ms/sweep ({1e3 / per_sweep:.2f} sweeps/s); {long} sweeps "
+          f"{ms[long]:.1f} ms [{card}]", flush=True)
     return per_sweep
 
 
@@ -1238,6 +1279,326 @@ def packed_input_phase(NBMF, solve, X, lastfm, lastfm_mask, binary_est, binary_p
     return total
 
 
+def lane_factors(m, n, k, Mp, Np, lanes, seed):
+    """``lanes`` random pairs (W, H) on the card at the solver's padded
+    geometry, stacked: ``W (lanes, k, Mp)``, ``H (lanes, k, Np)``."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    W = torch.zeros((lanes, k, Mp), device=DEV)
+    W[:, :, :m] = torch.rand((lanes, k, m), generator=gen, device=DEV) * 0.8 + 0.1
+    W[:, :, :m] /= W[:, :, :m].sum(dim=1, keepdim=True)
+    H = torch.zeros((lanes, k, Np), device=DEV)
+    H[:, :, :n] = torch.rand((lanes, k, n), generator=gen, device=DEV) * 0.8 + 0.1
+    return W, H
+
+
+def batched_calls(o, d, cs, ds):
+    """The five production wrappers on the binary operands ``o`` (K1, K2) and
+    the dense operands ``d``, each as (call on (W, H), plain version on one
+    pair)."""
+    kh = dict(eps=EPS, m_real=o["m"], n_real=o["n"])
+    kw = dict(eps=EPS, n_real=o["n"])
+    bm = o["bm"]
+    return {
+        "hloss_terms_packed": (
+            lambda W, H: cs.hloss_terms_packed(W, H, o["words"], o["words2_h"], bm=bm, **kh),
+            lambda W, H: cs.hloss_terms_packed_plain(W, H, o["words"], o["words2_h"], bm=bm,
+                                                     **kh)),
+        "w_terms_packed": (
+            lambda W, H: cs.w_terms_packed(W, H, o["words"], o["words2_w"], bm=bm, **kw),
+            lambda W, H: cs.w_terms_packed_plain(W, H, o["words"], o["words2_w"], bm=bm, **kw)),
+        "hloss_terms": (
+            lambda W, H: ds.hloss_terms(W, H, d["Ym"], d["Yc"], bm=bm, **kh),
+            lambda W, H: ds.hloss_terms_plain(W, H, d["Ym"], d["Yc"], **kh)),
+        "w_terms": (
+            lambda W, H: ds.w_terms(W, H, d["Ym"], d["Ym2"], bm=bm, **kw),
+            lambda W, H: ds.w_terms_plain(W, H, d["Ym"], d["Ym2"], **kw)),
+        "loglik_sum": (
+            lambda W, H: ds.loglik_sum(W, H, d["Ym"], d["Yc"], bm=bm, **kh),
+            lambda W, H: ds.loglik_sum_plain(W, H, d["Ym"], d["Yc"], **kh)),
+    }
+
+
+def check_batched_kernels(label, Y, soft, k, lane_counts, card, cs, ds, errors):
+    """The five production kernels with a lane axis, in all three mask modes:
+    lane ``r`` of a batched call equals the unbatched kernel on
+    ``(W[r], H[r])`` bitwise, and the last lane is held against the plain
+    version.  K1 and K2 on the binary ``Y``, the dense kernels on the
+    [0,1]-valued ``soft`` under a weighted mask."""
+    m, n = Y.shape
+    for mode in MODES:
+        o = operands(Y, k, mode, 20, cs)
+        d = operands(soft, k, mode, 21, cs, weighted=True)
+        bm, Mp, Np = cs.plan_packing(m, n)
+        for lanes in lane_counts:
+            W, H = lane_factors(m, n, k, Mp, Np, lanes, 22 + lanes)
+            same, worst, worst_ll = True, 0.0, 0.0
+            for name, (call, plain) in batched_calls(o, d, cs, ds).items():
+                got = as_tuple(call(W, H))
+                torch.cuda.synchronize()
+                for out in got:
+                    check(out.shape[0] == lanes, f"{name}: output without the lane axis")
+                for r in range(lanes):
+                    one = as_tuple(call(W[r], H[r]))
+                    same &= all(torch.equal(g[r], u) for g, u in zip(got, one))
+                for g, w in zip(got, as_tuple(plain(W[-1], H[-1]))):
+                    if w.numel() == 1:
+                        worst_ll = max(worst_ll, rel_ll(g[-1], w))
+                    else:
+                        worst = max(worst, rel(g[-1], w))
+                    errors[name] = max(errors[name], abs_err(g[-1], w))
+            print(f"lanes {label} {m}x{n} k={k} {mode} R={lanes}: K1, K2, dense H, dense W, "
+                  f"loglik_sum: every lane == the unbatched kernel bitwise {same}; last lane "
+                  f"against plain: max rel err {worst:.3e} (bound {TOL_TERMS:g} of "
+                  f"max|plain|), ll {worst_ll:.3e} (bound {TOL_LL:g}) [{card}]", flush=True)
+            check(same, f"lanes {label} {mode} R={lanes}: a lane differs from the unbatched kernel")
+            check(worst <= TOL_TERMS and worst_ll <= TOL_LL,
+                  f"lanes {label} {mode} R={lanes}: a batched kernel disagrees with plain")
+
+
+def restart_main_path(NBMF, solve, X, card, cs, ds):
+    """The restart path at full width: ``NBMF.fit`` with 16 restarts on the
+    headline binary matrix as one batched solve, then the best lane again as
+    a standalone solve from that lane's inits."""
+    from nbmf_mm_tpu_torch.solver.driver import _random_uniform_inits
+
+    k, R, sweeps = HEADLINE["k"], LANES_TIMED, RESTART_SWEEPS
+    m, n = X.shape
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(cs, ds)
+    est, wall = timed(lambda: NBMF(n_components=k, n_init=R, max_iter=sweeps, tol=0.0,
+                                   random_state=0, dtype="float32", device=DEV).fit(X))
+    launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
+    peak = torch.cuda.max_memory_allocated()
+    res = est.solver_result_
+    finals = res.all_final_losses
+    bm, Mp, Np = cs.plan_packing(m, n)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    split = cs.plan_h_split(Mp, Np, k, n_sm)
+    scratch = 2 * R * int(np.prod(split.scratch)) * 4 + R * k * Mp * 4
+    print(f"main path (restarts): NBMF.fit n_init={R} {m}x{n} k={k} f32, {sweeps} sweeps at "
+          f"tol=0: {wall:.2f} s wall, {R * est.n_iter_ / wall:.1f} restart-sweeps/s set-up "
+          f"included; best restart {res.best_restart}, final losses {finals.min():.6f} to "
+          f"{finals.max():.6f}; launches {launches}, lanes {lanes}; peak device memory "
+          f"{peak / 1e6:.1f} MB ({held / 1e6:.1f} MB held before), of which the H pass's "
+          f"scratch of one call (two partial buffers over {split.nsplit} chunks and W's "
+          f"bit-plane copies) is {scratch / 1e6:.1f} MB [{card}]", flush=True)
+    check(res.extras == {"backend": "fused", "packed": True}, f"restart fit took {res.extras}")
+    check(launches["hloss_terms_packed"] == sweeps + 1 and launches["w_terms_packed"] == sweeps,
+          f"restart fit: launches {launches}")
+    check(lanes["hloss_terms_packed"] == R * (sweeps + 1)
+          and lanes["w_terms_packed"] == R * sweeps, f"restart fit: lanes {lanes}")
+    check(launches["hloss_terms"] == launches["w_terms"] == launches["loglik_sum"] == 0,
+          "the restart fit launched a dense kernel")
+    check(finals.shape == (R,) and np.isfinite(finals).all(), "restart fit: final losses")
+    check(res.best_restart == int(np.argmin(finals)), "restart fit: best_restart is not argmin")
+    check(est.n_iter_ == sweeps and est.loss_curve_[-1] == finals.min(),
+          "restart fit: loss_curve_ does not end at the lowest final loss")
+    check_fit("restart fit", est, np.asarray(est.loss_curve_), card)
+
+    best = res.best_restart
+    W0, H0 = _random_uniform_inits(0, R, m, n, k, torch.float32)
+    zero_counts(cs, ds)
+    one = solve(X, k, W_init=W0[best].numpy(), H_init=H0[best].numpy(), max_iter=sweeps, tol=0.0,
+                dtype="float32", device=DEV)
+    add = read_counts(cs, ds)
+    del W0, H0
+    loss_diff = float(np.max(np.abs(np.asarray(one.losses) - np.asarray(est.loss_curve_))
+                             / np.abs(np.asarray(one.losses))))
+    w_diff = float(np.abs(one.W - est.W_).max())
+    h_diff = float(np.abs(one.H - est.components_).max())
+    bitwise = (one.losses == list(est.loss_curve_) and np.array_equal(one.W, est.W_)
+               and np.array_equal(one.H, est.components_))
+    print(f"restarts: lane {best} again as a standalone solve from its inits: n_iter "
+          f"{one.n_iter} / {est.n_iter_}, losses max rel diff {loss_diff:.3e} (bound 1e-6), "
+          f"max |W diff| {w_diff:.3e}, max |H diff| {h_diff:.3e} (bound 1e-5); bitwise equal "
+          f"{bitwise} [{card}]", flush=True)
+    check(one.n_iter == est.n_iter_, "restart lane: n_iter differs from the standalone solve")
+    check(loss_diff <= 1e-6 and max(w_diff, h_diff) <= 1e-5,
+          "restart lane differs from its standalone solve")
+    return ({name: launches[name] + add[name] for name in launches}, lanes, wall, peak)
+
+
+def return_all_dir_beta(solve, lastfm, mask, card, cs, ds):
+    """``return_all`` under dir-beta on masked lastfm: every restart's factors
+    in external notation."""
+    R, k = 4, PAPER_LASTFM_K
+    m, n = lastfm.shape
+    zero_counts(cs, ds)
+    res = solve(lastfm, k, n_init=R, return_all=True, orientation="dir-beta", mask=mask,
+                max_iter=200, random_state=0, dtype="float32", device=DEV)
+    launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
+    ex = res.extras
+    shapes = {name: ex[name].shape for name in ("all_W", "all_H", "all_n_iter", "all_losses",
+                                                "all_converged")}
+    sums = float(np.abs(ex["all_H"].sum(axis=1) - 1).max())
+    print(f"restarts: solve(lastfm, {k}, n_init={R}, return_all=True, dir-beta, parity mask): "
+          f"n_iter {res.n_iter}, all_n_iter {ex['all_n_iter'].tolist()}, best "
+          f"{res.best_restart}, extras {shapes}; max |column sum of all_H - 1| {sums:.2e}; "
+          f"all_W[best] == W {np.array_equal(ex['all_W'][res.best_restart], res.W)}; launches "
+          f"{launches}, lanes {lanes} [{card}]", flush=True)
+    check(shapes == {"all_W": (R, m, k), "all_H": (R, k, n), "all_n_iter": (R,),
+                     "all_losses": (R, 200), "all_converged": (R,)}, f"return_all: {shapes}")
+    check(all(isinstance(ex[name], np.ndarray) for name in shapes), "return_all: not numpy")
+    check(sums <= 1e-5, "return_all dir-beta: columns of all_H do not sum to 1")
+    check(np.array_equal(ex["all_W"][res.best_restart], res.W), "return_all: all_W[best] != W")
+    check(res.n_iter == ex["all_n_iter"][res.best_restart], "return_all: n_iter of the best")
+    check(lanes["hloss_terms_packed"] == R * launches["hloss_terms_packed"] > 0,
+          "return_all: K1 lanes")
+    return launches, lanes
+
+
+def dense_restart_fit(NBMF, P, card, cs, ds):
+    """A restart fit on the [0,1]-valued mean matrix: the dense H and W
+    kernels and the ``loglik_sum`` fill with 4 lanes."""
+    R, sweeps = 4, 20
+    zero_counts(cs, ds)
+    est, wall = timed(lambda: NBMF(n_components=HEADLINE["k"], n_init=R, max_iter=sweeps,
+                                   tol=0.0, random_state=0, dtype="float32", device=DEV).fit(P))
+    launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
+    finals = est.solver_result_.all_final_losses
+    print(f"main path (dense restarts): NBMF.fit n_init={R} on the mean matrix, {sweeps} "
+          f"sweeps: {wall:.2f} s wall; best restart {est.solver_result_.best_restart}, final "
+          f"losses {finals.min():.6f} to {finals.max():.6f}; launches {launches}, lanes "
+          f"{lanes} [{card}]", flush=True)
+    check(est.solver_result_.extras == {"backend": "fused", "packed": False},
+          f"dense restart fit took {est.solver_result_.extras}")
+    check(launches["hloss_terms"] == sweeps and launches["w_terms"] == sweeps
+          and launches["loglik_sum"] == 1, f"dense restart fit: launches {launches}")
+    check(lanes["hloss_terms"] == R * sweeps and lanes["w_terms"] == R * sweeps
+          and lanes["loglik_sum"] == R, f"dense restart fit: lanes {lanes}")
+    check(launches["hloss_terms_packed"] == launches["w_terms_packed"] == 0,
+          "the dense restart fit launched packed kernels")
+    check(np.isfinite(finals).all() and est.loss_curve_[-1] == finals.min(),
+          "dense restart fit: final losses")
+    check_fit("dense restart fit", est, np.asarray(est.loss_curve_), card)
+    return launches, lanes
+
+
+def grid_phase(grid_solve, solve, lastfm, mask, X, card, cs, ds):
+    """The paper reproduction's 6 x 6 grid on masked lastfm as one 36-lane
+    solve, two cells held against standalone solves; then a 4-cell zip grid
+    at the headline."""
+    k, sweeps = PAPER_LASTFM_K, 200
+    zero_counts(cs, ds)
+    g, wall = timed(lambda: grid_solve(lastfm, k, PAPER_GRID, PAPER_GRID, mask=mask,
+                                       max_iter=sweeps, dtype="float32", device=DEV))
+    launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
+    cells = len(PAPER_GRID) ** 2
+    m, n = lastfm.shape
+    rises = max(float(np.max(np.diff(g["losses"][c, :g["n_iter"][c]])
+                             / np.abs(g["losses"][c, :g["n_iter"][c] - 1])))
+                for c in range(cells))
+    print(f"grid: grid_solve(lastfm, {k}, 6 x 6 of {PAPER_GRID}, parity mask, max_iter "
+          f"{sweeps}): {cells} cells in one solve, {wall:.2f} s wall; n_iter "
+          f"{int(g['n_iter'].min())} to {int(g['n_iter'].max())}, converged "
+          f"{int(g['converged'].sum())} of {cells}, final losses {g['final_loss'].min():.6f} to "
+          f"{g['final_loss'].max():.6f}; largest relative rise of a cell's loss {rises:.2e} "
+          f"(bound 1e-6); launches {launches}, lanes {lanes} [{card}]", flush=True)
+    check(g["W"].shape == (cells, m, k) and g["H"].shape == (cells, k, n)
+          and g["losses"].shape == (cells, sweeps) and g["alpha"].shape == (cells,),
+          "grid: shapes")
+    check(all(np.isfinite(g[name]).all() for name in ("W", "H", "final_loss")), "grid: finite")
+    check(rises <= 1e-6, "grid: a cell's losses rise")
+    check(lanes["hloss_terms_packed"] == cells * launches["hloss_terms_packed"] > 0
+          and lanes["w_terms_packed"] == cells * launches["w_terms_packed"] > 0,
+          f"grid: lanes {lanes} for launches {launches}")
+    for c in (1, cells - 2):  # (0.5, 1.0) and (3.0, 2.5)
+        one = solve(lastfm, k, alpha=float(g["alpha"][c]), beta=float(g["beta"][c]), mask=mask,
+                    max_iter=sweeps, random_state=0, dtype="float32", device=DEV)
+        w_diff = float(np.abs(g["W"][c] - one.W).max())
+        print(f"grid: cell {c} (alpha {g['alpha'][c]}, beta {g['beta'][c]}) against the "
+              f"standalone solve with the same seed: n_iter {int(g['n_iter'][c])} / "
+              f"{one.n_iter}, max |W diff| {w_diff:.3e} (bound 1e-5), H bitwise equal "
+              f"{np.array_equal(g['H'][c], one.H)} [{card}]", flush=True)
+        check(int(g["n_iter"][c]) == one.n_iter, f"grid cell {c}: n_iter")
+        check(w_diff <= 1e-5, f"grid cell {c}: W differs from the standalone solve")
+    total = dict(launches)
+
+    zips, steps = (0.8, 1.2, 1.6, 2.0), 10
+    zero_counts(cs, ds)
+    z, wall = timed(lambda: grid_solve(X, HEADLINE["k"], zips, zips[::-1], pair_mode="zip",
+                                       max_iter=steps, tol=0.0, dtype="float32", device=DEV))
+    launches, zlanes = read_counts(cs, ds), read_lanes(cs, ds)
+    print(f"grid: grid_solve(headline, {HEADLINE['k']}, zip of {zips} with {zips[::-1]}, "
+          f"{steps} sweeps): {wall:.2f} s wall, final losses {z['final_loss'].tolist()}; "
+          f"launches {launches}, lanes {zlanes} [{card}]", flush=True)
+    check(z["W"].shape == (4, X.shape[0], HEADLINE["k"]) and (z["n_iter"] == steps).all()
+          and np.isfinite(z["final_loss"]).all(), "zip grid at the headline")
+    check(launches["hloss_terms_packed"] == steps + 1 and launches["w_terms_packed"] == steps
+          and zlanes["hloss_terms_packed"] == 4 * (steps + 1), "zip grid: launches")
+    for name in total:
+        total[name] += launches[name]
+    return total, {name: lanes[name] + zlanes[name] for name in lanes}
+
+
+def time_batched(X, P, k, times, loops, card, cs, ds):
+    """ms per call and per lane of the five batched kernels at the headline
+    with 16 lanes, beside the unbatched ms and the batched bound (16 times
+    the unbatched operations; bytes with the data counted once); then the
+    batched fused loops beside 16 unbatched sweeps."""
+    R = LANES_TIMED
+    o = operands(X, k, "unmasked", 2, cs)
+    d = operands(P, k, "unmasked", 2, cs, weighted=True)
+    m, n, bm = o["m"], o["n"], o["bm"]
+    _, Mp, Np = cs.plan_packing(m, n)
+    W, H = lane_factors(m, n, k, Mp, Np, R, 4)
+    mnk = m * n * k
+    factors_b, num_den_b, T_b = tensor_bytes(W, H), 2 * tensor_bytes(H), tensor_bytes(W)
+    work = {"hloss_terms_packed": (6, o["words"], num_den_b + 4 * R),
+            "w_terms_packed": (6, o["words"], T_b),
+            "hloss_terms": (6, d["Ym"], num_den_b + 4 * R),
+            "w_terms": (6, d["Ym"], T_b),
+            "loglik_sum": (2, d["Ym"], 4 * R)}
+    calls = batched_calls(o, d, cs, ds)
+    for name, (products, data, out_bytes) in work.items():
+        ms = cuda_ms(lambda: calls[name][0](W, H), reps=3)
+        bound_ms, bound_by = bound(R * products * mnk, factors_b + tensor_bytes(data) + out_bytes)
+        times[name].update(batched_ms=ms, batched_bound_ms=bound_ms)
+        one = times[name]["ms"]
+        print(f"timing {name} at {m}x{n} k={k} with {R} lanes: {ms:.4f} ms/call, "
+              f"{ms / R:.4f} ms/lane beside {one:.4f} ms unbatched ({100 * ms / R / one:.1f}%); "
+              f"{R * products * mnk / ms / 1e9:.2f} TFLOP/s, {100 * bound_ms / ms:.1f}% of its "
+              f"{bound_ms:.4f} ms bound ({bound_by}) [{card}]", flush=True)
+    del o, d, W, H
+    for name, Y, packed in (("binary", X, True), ("dense", P, False)):
+        per = loop_ms_per_sweep(name, Y, k, packed, card, cs, lanes=R, runs=(3, 13))
+        print(f"timing batched fused loop ({name}): {per:.3f} ms/sweep for {R} lanes = "
+              f"{per / R:.3f} ms per lane-sweep beside {loops[name]:.3f} ms/sweep unbatched "
+              f"({R} x = {R * loops[name]:.3f}); {1e3 * R / per:.1f} restart-sweeps/s "
+              f"[{card}]", flush=True)
+
+
+def restarts_and_grids_phase(NBMF, solve, grid_solve, X, P, lastfm, lastfm_soft, tiny,
+                             lastfm_mask, times, loops, card, cs, ds, errors):
+    """Phase 9.  Returns (launches, lanes) per kernel, summed over its runs,
+    each counted with the counters set to 0 just before and read just after."""
+    k = HEADLINE["k"]
+    check_batched_kernels("headline", X, P, k, (LANES_CHECKED,), card, cs, ds, errors)
+    for label, shape, rank in LANE_EDGES:
+        if shape is None:
+            Y, soft = lastfm, lastfm_soft
+        elif shape == tiny.shape:
+            Y, soft = tiny, tiny * 0.5 + 0.25
+        else:
+            rng = np.random.default_rng(sum(shape) + rank)
+            Y = (rng.random(shape) < 0.3).astype(np.float32)
+            soft = rng.random(shape).astype(np.float32)
+        check_batched_kernels(label, Y, soft, rank, LANE_EDGE_COUNTS, card, cs, ds, errors)
+    runs = [restart_main_path(NBMF, solve, X, card, cs, ds)[:2],
+            return_all_dir_beta(solve, lastfm, lastfm_mask, card, cs, ds),
+            dense_restart_fit(NBMF, P, card, cs, ds),
+            grid_phase(grid_solve, solve, lastfm, lastfm_mask, X, card, cs, ds)]
+    launches = {name: sum(run[0][name] for run in runs) for name in PATH_KERNELS}
+    lanes = {name: sum(run[1][name] for run in runs) for name in PATH_KERNELS}
+    for name in PATH_KERNELS:
+        check(lanes[name] > launches[name] > 0,
+              f"{name}: phase 9 launched it {launches[name]} times with {lanes[name]} lanes")
+    time_batched(X, P, k, times, loops, card, cs, ds)
+    return launches, lanes
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no CUDA card")
@@ -1246,7 +1607,7 @@ def main() -> None:
     print(card, flush=True)
     nvcc = subprocess.run(["bash", "-c", "nvcc --version || /usr/local/cuda/bin/nvcc --version"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    from nbmf_mm_tpu_torch import NBMF, FoldInServer, solve
+    from nbmf_mm_tpu_torch import NBMF, FoldInServer, grid_solve, solve
 
     # A solve turns TF32 off for its own duration and leaves the process's
     # switches as it found them; the script's own comparisons then run with
@@ -1329,8 +1690,8 @@ def main() -> None:
 
     # ---------------------------------------------------------- 6. timing
     times = time_kernels(X, P, HEADLINE["k"], card, cs, ds)
-    loop_ms_per_sweep("binary", X, HEADLINE["k"], True, card, cs)
-    loop_ms_per_sweep("dense", P, HEADLINE["k"], False, card, cs)
+    loops = {"binary": loop_ms_per_sweep("binary", X, HEADLINE["k"], True, card, cs),
+             "dense": loop_ms_per_sweep("dense", P, HEADLINE["k"], False, card, cs)}
     serving_ms(server, plain_server, requests, weighted, card)
 
     # ---------------------------------------------- 7. measurement path
@@ -1349,6 +1710,16 @@ def main() -> None:
     for name in PATH_KERNELS:
         launches[name] += input_counts[name]
     print(f"packed and sparse input: {time.perf_counter() - t8:.1f} s [{card}]", flush=True)
+
+    # ------------------------------------------------ 9. restarts and grids
+    t9 = time.perf_counter()
+    lane_launches, lanes = restarts_and_grids_phase(
+        NBMF, solve, grid_solve, X, P, lastfm, lastfm_soft, tiny, lastfm_mask, times, loops,
+        card, cs, ds, errors)
+    for name in PATH_KERNELS:
+        launches[name] += lane_launches[name]
+        times[name]["lanes"] = lanes[name]
+    print(f"restarts and grids: {time.perf_counter() - t9:.1f} s [{card}]", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
     kernels = [

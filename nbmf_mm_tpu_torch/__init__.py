@@ -14,17 +14,21 @@ against a fitted model through the same W-pass kernels
 (:class:`FoldInServer`, :func:`fold_in_fused`).  Data that is packed already
 or sparse (:class:`PackedMatrix` and its packers, ``scipy.sparse`` input)
 reaches the packed loop without a dense copy
-(:mod:`nbmf_mm_tpu_torch.ops.packed`).
+(:mod:`nbmf_mm_tpu_torch.ops.packed`).  Restarts (``solve(n_init=...)``)
+and hyperparameter grids (:func:`grid_solve`) run as one batched solve over
+data staged once: the kernels take a leading lane axis on the factors
+(:mod:`nbmf_mm_tpu_torch.parallel`).
 
 Public surface: ``NBMF``/``NBMFMM``, :func:`solve`, :func:`nbmf_mm_solver`,
 :class:`SolverResult`, :class:`PackedMatrix`, :func:`pack_matrix`,
 :func:`pack_matrix_chunked`, :func:`pack_matrix_sparse`,
-:class:`FoldInServer`, :func:`fold_in_fused`.
+:class:`FoldInServer`, :func:`fold_in_fused`, :func:`grid_solve`.
 """
 
 from .models.estimator import NBMF, NBMFMM
 from .models.serving import FoldInServer, fold_in_fused
 from .ops.packed import PackedMatrix, pack_matrix, pack_matrix_chunked, pack_matrix_sparse
+from .parallel.grid import grid_solve
 from .solver.driver import SolverResult, nbmf_mm_solver, solve
 
 __version__ = "0.1.0"
@@ -41,5 +45,6 @@ __all__ = [
     "pack_matrix_sparse",
     "FoldInServer",
     "fold_in_fused",
+    "grid_solve",
     "__version__",
 ]

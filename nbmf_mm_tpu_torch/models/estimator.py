@@ -106,7 +106,10 @@ class NBMFMM(*_BASES):
         ``"beta-dir"`` or ``"dir-beta"``; aliases such as ``"Binary ICA"`` /
         ``"Aspect Bernoulli"`` are canonicalized.
     n_init : int, default=1
-        Only 1 is supported so far.
+        Random restarts, run as one batched solve over data staged once; the
+        fit with the lowest final objective is kept, and
+        ``solver_result_.best_restart`` / ``.all_final_losses`` say which it
+        was and what every restart reached.  Excludes ``W_init``/``H_init``.
     projection : {"normalize", "duchi"}, default="normalize"
     mask_mode : {"parity", "corrected"}, default="parity"
     dtype : optional

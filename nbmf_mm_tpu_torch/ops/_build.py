@@ -33,25 +33,26 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # W, H, words, words2, num, den, num_part, den_part, ll_part, ll, wperm,
-    # k, Mp, Np, bm, m_real, n_real, nsplit, eps, device, stream
-    "nbmf_hloss_terms_packed": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
-    # W, H, words, words2, T, part, k, Mp, Np, bm, n_real, nsplit, eps,
+    # k, Mp, Np, bm, m_real, n_real, nsplit, lanes, eps, device, stream
+    "nbmf_hloss_terms_packed": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
+    # W, H, words, words2, T, part, k, Mp, Np, bm, n_real, nsplit, lanes, eps,
     # device, stream
-    "nbmf_w_terms_packed": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    "nbmf_w_terms_packed": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     # as nbmf_hloss_terms_packed with dense Ym, Yc in place of the words
-    "nbmf_hloss_terms_dense": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "nbmf_hloss_terms_dense": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
     # as nbmf_w_terms_packed with dense Ym, Ym2 in place of the words
-    "nbmf_w_terms_dense": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    "nbmf_w_terms_dense": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     # W, H, Ym, Yc, ll_part, ll, wperm, k, Mp, Np, bm, m_real, n_real,
-    # nsplit, eps, device, stream
-    "nbmf_loglik_sum_dense": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    # nsplit, lanes, eps, device, stream
+    "nbmf_loglik_sum_dense": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
     # as nbmf_hloss_terms_dense (ll_part, ll, m_real, n_real not read)
-    "nbmf_h_terms_dense": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    "nbmf_h_terms_dense": [_P] * 11 + [_I] * 8 + [_F, _I, _P],
     # x, part1, part2, out, num, den, k, rows, cols, rows_per_block, bmw,
     # dtype, frag, device, stream
     "nbmf_probe_reduce": [_P] * 6 + [_I] * 8 + [_P],
 }
-# The H- and W-pass probes of probes.cu take the production signatures.
+# The H- and W-pass probes of probes.cu take the production signatures
+# (with lanes == 1).
 _SIGNATURES.update(
     {f"nbmf_probe_{name}{suffix}": _SIGNATURES[f"nbmf_{like}"]
      for like, names in (("hloss_terms_packed", ("hloss_product", "hloss_select", "hloss_dense",

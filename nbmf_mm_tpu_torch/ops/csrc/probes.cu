@@ -239,17 +239,19 @@ cudaError_t dispatch_reduce(int dtype, int frag, const void* x, double* part1, d
 }  // namespace
 
 // An H-pass probe: the production signature (nbmf_hloss_terms_packed's);
-// y2 must be NULL.  Identity instances read no ll arguments, and the
-// plus1/weighted ones no data operand.
+// y2 must be NULL and lanes 1 (the probes time one pair of factors).
+// Identity instances read no ll arguments, and the plus1/weighted ones no
+// data operand.
 #define NBMF_PROBE_H(NAME, Y, LOSS, POLICY)                                                      \
     extern "C" int NAME(const float* W, const float* H, const Y* y, const Y* y2, float* num,    \
                         float* den, float* num_part, float* den_part, double* ll_part,         \
                         float* ll, float* wperm, int k, int Mp, int Np, int bm, int m_real,    \
-                        int n_real, int nsplit, float eps, int device, void* stream) {         \
-        if (y2 != nullptr) return (int)cudaErrorInvalidValue;                                  \
+                        int n_real, int nsplit, int lanes, float eps, int device,              \
+                        void* stream) {                                                        \
+        if (y2 != nullptr || lanes != 1) return (int)cudaErrorInvalidValue;                    \
         return run_hloss_as<false, Y, true, LOSS, POLICY>(                                     \
             W, H, y, nullptr, num, den, num_part, den_part, ll_part, ll, wperm, k, Mp, Np, bm, \
-            m_real, n_real, nsplit, eps, device, stream);                                      \
+            m_real, n_real, nsplit, 1, eps, device, stream);                                   \
     }
 
 NBMF_PROBE_H(nbmf_probe_hloss_product, int32_t, true, ProductF32)
@@ -267,15 +269,15 @@ NBMF_PROBE_H(nbmf_probe_mxu_weighted_bf16, float, false, WeightedBf16)
 #undef NBMF_PROBE_H
 
 // A W-pass probe: the production signature (nbmf_w_terms_packed's); y2
-// must be NULL.  chain3_tile reads no data operand and writes (2k, Mp), its
-// split partials (nsplit, 2k, Mp).
+// must be NULL and lanes 1.  chain3_tile reads no data operand and writes
+// (2k, Mp), its split partials (nsplit, 2k, Mp).
 #define NBMF_PROBE_W(NAME, Y, POLICY)                                                          \
     extern "C" int NAME(const float* W, const float* H, const Y* y, const Y* y2, float* T,     \
                         float* part, int k, int Mp, int Np, int bm, int n_real, int nsplit,    \
-                        float eps, int device, void* stream) {                                 \
-        if (y2 != nullptr) return (int)cudaErrorInvalidValue;                                  \
+                        int lanes, float eps, int device, void* stream) {                      \
+        if (y2 != nullptr || lanes != 1) return (int)cudaErrorInvalidValue;                    \
         return run_wterms_as<false, Y, POLICY>(W, H, y, nullptr, T, part, k, Mp, Np, bm,       \
-                                               n_real, nsplit, eps, device, stream);           \
+                                               n_real, nsplit, 1, eps, device, stream);        \
     }
 
 NBMF_PROBE_W(nbmf_probe_w_product, int32_t, OneMatmulProductF32)

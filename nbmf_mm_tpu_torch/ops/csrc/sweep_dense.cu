@@ -26,49 +26,51 @@
 
 extern "C" {
 
-// Num/Den (k, Np), ll (scalar); scratch and alignment as
+// Num/Den (lanes, k, Np), ll (lanes); lanes, scratch and alignment as
 // nbmf_hloss_terms_packed.
 int nbmf_hloss_terms_dense(const float* W, const float* H, const float* Ym, const float* Yc,
                            float* num, float* den, float* num_part, float* den_part,
                            double* ll_part, float* ll, float* wperm, int k, int Mp, int Np, int bm,
-                           int m_real, int n_real, int nsplit, float eps, int device,
+                           int m_real, int n_real, int nsplit, int lanes, float eps, int device,
                            void* stream_ptr) {
     return run_hloss<float, true>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part, ll, wperm,
-                                  k, Mp, Np, bm, m_real, n_real, nsplit, eps, device, stream_ptr);
+                                  k, Mp, Np, bm, m_real, n_real, nsplit, lanes, eps, device,
+                                  stream_ptr);
 }
 
-// Num/Den (k, Np) alone (h_terms): the instance above with the logs and the
-// ll partials compiled out, so its Num/Den equal nbmf_hloss_terms_dense's
+// Num/Den alone (h_terms): the instance above with the logs and the ll
+// partials compiled out, so its Num/Den equal nbmf_hloss_terms_dense's
 // bitwise.  The signature is nbmf_hloss_terms_dense's; ll_part, ll, m_real
 // and n_real are not read.
 int nbmf_h_terms_dense(const float* W, const float* H, const float* Ym, const float* Yc,
                        float* num, float* den, float* num_part, float* den_part, double* ll_part,
                        float* ll, float* wperm, int k, int Mp, int Np, int bm, int m_real,
-                       int n_real, int nsplit, float eps, int device, void* stream_ptr) {
+                       int n_real, int nsplit, int lanes, float eps, int device,
+                       void* stream_ptr) {
     return run_hloss<float, true, false>(W, H, Ym, Yc, num, den, num_part, den_part, ll_part, ll,
-                                         wperm, k, Mp, Np, bm, m_real, n_real, nsplit, eps,
+                                         wperm, k, Mp, Np, bm, m_real, n_real, nsplit, lanes, eps,
                                          device, stream_ptr);
 }
 
-// T (k, Mp) from Ym, the new H and, when given, Ym2; scratch as
-// nbmf_w_terms_packed.
+// T (lanes, k, Mp) from Ym, each lane's W and new H and, when given, Ym2;
+// lanes and scratch as nbmf_w_terms_packed.
 int nbmf_w_terms_dense(const float* W, const float* H, const float* Ym, const float* Ym2,
                        float* T, float* part, int k, int Mp, int Np, int bm, int n_real,
-                       int nsplit, float eps, int device, void* stream_ptr) {
-    return run_wterms<float>(W, H, Ym, Ym2, T, part, k, Mp, Np, bm, n_real, nsplit, eps, device,
-                             stream_ptr);
+                       int nsplit, int lanes, float eps, int device, void* stream_ptr) {
+    return run_wterms<float>(W, H, Ym, Ym2, T, part, k, Mp, Np, bm, n_real, nsplit, lanes, eps,
+                             device, stream_ptr);
 }
 
-// ll (scalar) of the current (W, H) over the real region, on the H pass's
-// grid of nsplit word-row chunks; ll_part holds ceil(Np/64) * nsplit
-// doubles, wperm is (k, Mp) scratch.
+// ll (lanes) of each lane's (W, H) over the real region, on the H pass's
+// grid of nsplit word-row chunks; ll_part holds lanes * ceil(Np/64) * nsplit
+// doubles, wperm is (lanes, k, Mp) scratch.
 int nbmf_loglik_sum_dense(const float* W, const float* H, const float* Ym, const float* Yc,
                           double* ll_part, float* ll, float* wperm, int k, int Mp, int Np, int bm,
-                          int m_real, int n_real, int nsplit, float eps, int device,
+                          int m_real, int n_real, int nsplit, int lanes, float eps, int device,
                           void* stream_ptr) {
     return run_hloss<float, false>(W, H, Ym, Yc, nullptr, nullptr, nullptr, nullptr, ll_part, ll,
-                                   wperm, k, Mp, Np, bm, m_real, n_real, nsplit, eps, device,
-                                   stream_ptr);
+                                   wperm, k, Mp, Np, bm, m_real, n_real, nsplit, lanes, eps,
+                                   device, stream_ptr);
 }
 
 }  // extern "C"

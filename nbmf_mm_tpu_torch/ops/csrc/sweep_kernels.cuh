@@ -77,6 +77,14 @@
 // fp32 FMA on the CUDA cores throughout; TF32 on the tensor cores would
 // change the numerics and is left to the precision tiers.
 //
+// Lanes: every kernel here takes a leading lane axis R on the factors from
+// its grid (blockIdx.z of the two passes, blockIdx.y of the small kernels
+// around them): lane r reads W[r] (k, Mp) and H[r] (k, Np) and writes its own
+// outputs, partials and ll, while the data operands are shared by all lanes.
+// This is the batch dimension jax.vmap gives the TPU kernels for restarts and
+// hyperparameter grids.  The block split does not depend on R, so a lane adds
+// its partials in the order a one-lane launch does and equals it bitwise.
+//
 // Determinism: no float atomics.  Every output element and every partial is
 // written by one thread, and the cross-block sums (the H pass's split over
 // m and its ll partials, the W pass's split over n) run in a fixed order in
@@ -135,12 +143,18 @@ __device__ __forceinline__ float mxu_operand(float x) {
 
 constexpr int kThreads = 256;
 
-// out[e] = sum over s of part[s][e], s in order (the H pass's split over m).
+// out[e] = sum over s of part[s][e], s in order (the H pass's split over m),
+// for lane blockIdx.y of (R, nsplit, count) partials and (R, count) outputs.
 __global__ void sum_splits_kernel(const float* __restrict__ num_part,
                                   const float* __restrict__ den_part, float* __restrict__ num,
                                   float* __restrict__ den, int nsplit, size_t count) {
     const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= count) return;
+    const size_t z = blockIdx.y;
+    num_part += z * nsplit * count;
+    den_part += z * nsplit * count;
+    num += z * count;
+    den += z * count;
     float sn = 0.f, sd = 0.f;
     for (int s = 0; s < nsplit; ++s) {
         sn += num_part[(size_t)s * count + e];
@@ -150,9 +164,12 @@ __global__ void sum_splits_kernel(const float* __restrict__ num_part,
     den[e] = sd;
 }
 
-// ll = sum of the per-block partials, in a fixed order (one block).
+// ll[r] = sum of lane r's per-block partials, in a fixed order (one block
+// per lane, r = blockIdx.x, of (R, count) partials).
 __global__ void sum_ll_kernel(const double* __restrict__ part, int count, float* __restrict__ ll) {
     __shared__ double s[kThreads];
+    part += (size_t)blockIdx.x * count;
+    ll += blockIdx.x;
     double acc = 0.0;
     for (int i = threadIdx.x; i < count; i += kThreads) acc += part[i];
     s[threadIdx.x] = acc;
@@ -168,14 +185,15 @@ __global__ void sum_ll_kernel(const double* __restrict__ part, int count, float*
 // T = H.P^T + (1-H).Q^T (k, Mp), redesigned for the H100 (see the note at
 // the head of this file for what it replaces and its bound).
 //
-// Grid (ceil(Mw/2), S): block (x, s) owns the kWRows = 64 data rows of word
-// rows 2x and 2x+1 (local row lr is bit lr % 32 of word row 2x + lr / 32,
-// the bit-plane order of word_row_bit) and column chunk s of S, a run of
-// whole 32-column tiles (the first nt % S chunks take one tile more).  Each
-// block writes its (n_out k, 64) partial of T once, into T itself when S = 1
-// or into scratch (S, n_out k, Mp); sum_parts_kernel then adds the S
-// partials in order s = 0, 1, ...: no float atomics, and a launch on the
-// same inputs gives bitwise the same T.
+// Grid (ceil(Mw/2), S, R): lane z = blockIdx.z reads W[z], H[z] and writes
+// its own partials.  Block (x, s) of a lane owns the kWRows = 64 data rows
+// of word rows 2x and 2x+1 (local row lr is bit lr % 32 of word row
+// 2x + lr / 32, the bit-plane order of word_row_bit) and column chunk s of
+// S, a run of whole 32-column tiles (the first nt % S chunks take one tile
+// more).  Each block writes its (n_out k, 64) partial of T once, into T
+// itself when S = 1 or into scratch (S, n_out k, Mp) per lane;
+// sum_parts_kernel then adds the S partials in order s = 0, 1, ...: no float
+// atomics, and a launch on the same inputs gives bitwise the same T.
 //
 // Per 32-column tile, two phases between barriers:
 //   A  the 64 x 32 tile of WH (each thread 2 rows x 4 columns, W and H read
@@ -257,6 +275,9 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
 
     const int tid = threadIdx.x;
     const int bmw = bm / 32, Mw = Mp / 32;
+    const size_t z = blockIdx.z;  // the lane: its W, H and partials
+    W += z * k * Mp;
+    H += z * k * Np;
     const int w0 = 2 * blockIdx.x;
     const int nt = (Np + kWCols - 1) / kWCols;
     const int S = gridDim.y, s = blockIdx.y;
@@ -471,7 +492,7 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
         }
     }
 
-    float* out = dst + (size_t)blockIdx.y * (E::kWForm == 2 ? 2 : 1) * k * Mp;
+    float* out = dst + (z * gridDim.y + blockIdx.y) * (E::kWForm == 2 ? 2 : 1) * k * Mp;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
         const int lr = rg + 16 * r;
@@ -494,30 +515,35 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
     }
 }
 
-// out[e] = sum over s of part[s][e], s in order (the W pass's column split).
+// out[e] = sum over s of part[s][e], s in order (the W pass's column split),
+// for lane blockIdx.y of (R, nsplit, count) partials and (R, count) outputs.
 __global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
                                  int nsplit, size_t count) {
     const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= count) return;
+    part += (size_t)blockIdx.y * nsplit * count;
+    out += (size_t)blockIdx.y * count;
     float acc = part[e];
     for (int s = 1; s < nsplit; ++s) acc += part[(size_t)s * count + e];
     out[e] = acc;
 }
 
 // ------------------------------------------------------------ launchers
-bool geometry_ok(int k, int Mp, int Np, int bm) {
+constexpr int kMaxLanes = 65535;  // gridDim.z (and gridDim.y) can be no larger
+
+bool geometry_ok(int k, int Mp, int Np, int bm, int lanes) {
     return k >= 1 && k <= 256 && Np >= 1 && bm >= 32 && bm % 32 == 0 && Mp >= bm &&
-           Mp % bm == 0;
+           Mp % bm == 0 && lanes >= 1 && lanes <= kMaxLanes;
 }
 
 template <bool SECOND, typename Y, class E>
 struct WpassLauncher {
-    // One W-pass launch, grid ceil(Mw/2) x nsplit, into dst (T, or the
-    // (nsplit, n_out k, Mp) partials).
+    // One W-pass launch, grid ceil(Mw/2) x nsplit x lanes, into dst (T, or
+    // the (lanes, nsplit, n_out k, Mp) partials).
     template <int TK>
     static cudaError_t launch(const float* W, const float* H, const Y* y, const Y* y2, float* dst,
-                              int k, int Mp, int Np, int bm, int n_real, int nsplit, float eps,
-                              cudaStream_t stream) {
+                              int k, int Mp, int Np, int bm, int n_real, int nsplit, int lanes,
+                              float eps, cudaStream_t stream) {
         using P = WPass<TK, SECOND, Y, E>;
         auto kernel = wpass_kernel<TK, SECOND, Y, E>;
         cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -526,7 +552,7 @@ struct WpassLauncher {
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                    (int)cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return err;
-        const dim3 grid((Mp / 32 + 1) / 2, nsplit);
+        const dim3 grid((Mp / 32 + 1) / 2, nsplit, lanes);
         kernel<<<grid, kThreads, P::kSmem, stream>>>(W, H, y, y2, dst, k, Mp, Np, bm, n_real, eps);
         return cudaGetLastError();
     }
@@ -550,7 +576,8 @@ cudaError_t dispatch_tk(int k, A... args) {
 // data row word_row_bit(w, b) of W, so word row w's 32 data rows are 128
 // contiguous bytes of every k row, whatever the stripe bm.
 //
-// Grid (ceil(Np/64), S): block (x, s) owns the kHCols = 64 columns
+// Grid (ceil(Np/64), S, R): lane z = blockIdx.z reads Wp[z], H[z] and writes
+// its own partials.  Block (x, s) of a lane owns the kHCols = 64 columns
 // [64 x, 64 x + 64) and chunk s of S, a run of whole word rows (the first
 // Mw % S chunks take one word row more).  It walks its word rows in order,
 // one step of 32 data rows each, and writes its (k, 64) partials of Num and
@@ -601,14 +628,17 @@ struct HPass {
 };
 
 // Wp[kk][32 w + b] = W[kk][data row of bit b of word row w], rounded to bf16
-// where the policy asks: the H pass's W in bit-plane order.
+// where the policy asks: the H pass's W in bit-plane order, one copy per lane
+// (blockIdx.y) of W (R, k, Mp).
 template <bool BF16>
 __global__ void bitplane_w_kernel(const float* __restrict__ W, float* __restrict__ Wp, int k,
                                   int Mp, int bm) {
     const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= (size_t)k * Mp) return;
+    const size_t lane0 = (size_t)blockIdx.y * k * Mp;
     const int kk = (int)(e / Mp), c = (int)(e % Mp);
-    Wp[e] = mxu_operand<BF16>(W[(size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
+    Wp[lane0 + e] = mxu_operand<BF16>(
+        W[lane0 + (size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
 }
 
 // SECOND: an explicit second operand (corrected mode's Yc); otherwise
@@ -633,6 +663,9 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
 
     const int tid = threadIdx.x;
     const int bmw = bm / 32, Mw = Mp / 32;
+    const size_t z = blockIdx.z;  // the lane: its W, H, partials and ll
+    Wp += z * k * Mp;
+    H += z * k * Np;
     const int c0 = blockIdx.x * kHCols;
     const int S = gridDim.y, s = blockIdx.y;
     const int w_begin = s * (Mw / S) + min(s, Mw % S);
@@ -836,7 +869,7 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
     }
 
     if constexpr (TERMS) {
-        const size_t base = (size_t)s * k * Np;
+        const size_t base = (z * S + s) * k * Np;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
             const int col = c0 + cg + 16 * c;
@@ -861,19 +894,19 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
         if (tid == 0) {
             double acc = 0.0;
             for (int i = 0; i < kThreads / 32; ++i) acc += ll_warp[i];
-            ll_part[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+            ll_part[(z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = acc;
         }
     }
 }
 
 template <bool SECOND, typename Y, bool TERMS, bool LOSS, class E>
 struct HpassLauncher {
-    // One H-pass launch, grid ceil(Np/64) x nsplit, into num/den (Num/Den,
-    // or the (nsplit, k, Np) partials).
+    // One H-pass launch, grid ceil(Np/64) x nsplit x lanes, into num/den
+    // (Num/Den, or the (lanes, nsplit, k, Np) partials).
     template <int TK>
     static cudaError_t launch(const float* Wp, const float* H, const Y* y, const Y* y2,
                               float* num, float* den, double* ll_part, int k, int Mp, int Np,
-                              int bm, int m_real, int n_real, int nsplit, float eps,
+                              int bm, int m_real, int n_real, int nsplit, int lanes, float eps,
                               cudaStream_t stream) {
         using P = HPass<TK, SECOND, Y, TERMS, E>;
         auto kernel = hpass_kernel<TK, SECOND, Y, TERMS, LOSS, E>;
@@ -883,29 +916,31 @@ struct HpassLauncher {
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                    (int)cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return err;
-        const dim3 grid((Np + kHCols - 1) / kHCols, nsplit);
+        const dim3 grid((Np + kHCols - 1) / kHCols, nsplit, lanes);
         kernel<<<grid, kThreads, P::kSmem, stream>>>(Wp, H, y, y2, num, den, ll_part, k, Mp, Np,
                                                      bm, m_real, n_real, eps);
         return cudaGetLastError();
     }
 };
 
-// The H pass of one instance with its fixed-order reductions: Num/Den
-// (k, Np) and ll, over nsplit chunks of word rows (1 <= nsplit <= Mp/32).
-// wperm is (k, Mp) scratch for W's bit-plane copy; with nsplit > 1 the
-// caller passes (nsplit, k, Np) scratch in num_part/den_part (else they may
-// be NULL), and ll_part holds ceil(Np/64) * nsplit doubles.  TERMS=false
+// The H pass of one instance with its fixed-order reductions, for `lanes`
+// pairs of factors W (lanes, k, Mp), H (lanes, k, Np) over shared operands
+// (1 <= lanes <= 65535): Num/Den (lanes, k, Np) and ll (lanes), over nsplit
+// chunks of word rows (1 <= nsplit <= Mp/32).  wperm is (lanes, k, Mp)
+// scratch for W's bit-plane copies; with nsplit > 1 the caller passes
+// (lanes, nsplit, k, Np) scratch in num_part/den_part (else they may be
+// NULL), and ll_part holds lanes * ceil(Np/64) * nsplit doubles.  TERMS=false
 // writes ll only, LOSS=false Num/Den only (ll_part and ll may then be
 // NULL).  The operand rows are copied as 16-byte vectors: Np % 4 == 0 and
 // y, y2 16-byte aligned.
 template <bool SECOND, typename Y, bool TERMS, bool LOSS = true, class E = Sweep>
 int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float* num, float* den,
                  float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,
-                 int Mp, int Np, int bm, int m_real, int n_real, int nsplit, float eps,
+                 int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,
                  int device, void* stream_ptr) {
     const auto misaligned = [](const void* p) { return ((uintptr_t)p & 15u) != 0; };
     const bool split = TERMS && nsplit > 1;
-    if (!geometry_ok(k, Mp, Np, bm) || Np % 4 || nsplit < 1 || nsplit > Mp / 32 ||
+    if (!geometry_ok(k, Mp, Np, bm, lanes) || Np % 4 || nsplit < 1 || nsplit > Mp / 32 ||
         wperm == nullptr || misaligned(wperm) || misaligned(y) || misaligned(y2) ||
         (TERMS && (num == nullptr || den == nullptr)) ||
         (split && (num_part == nullptr || den_part == nullptr)) ||
@@ -915,17 +950,17 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
     if (err != cudaSuccess) return (int)err;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const size_t count = (size_t)k * Mp;
-    bitplane_w_kernel<E::kBf16><<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0,
-                                  stream>>>(W, wperm, k, Mp, bm);
+    bitplane_w_kernel<E::kBf16><<<dim3((unsigned)((count + kThreads - 1) / kThreads), lanes),
+                                  kThreads, 0, stream>>>(W, wperm, k, Mp, bm);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = dispatch_tk<HpassLauncher<SECOND, Y, TERMS, LOSS, E>>(
         k, wperm, H, y, y2, split ? num_part : num, split ? den_part : den, ll_part, k, Mp, Np,
-        bm, m_real, n_real, nsplit, eps, stream);
+        bm, m_real, n_real, nsplit, lanes, eps, stream);
     if (err != cudaSuccess) return (int)err;
     if (split) {
         const size_t terms = (size_t)k * Np;
-        const int blocks = (int)((terms + kThreads - 1) / kThreads);
+        const dim3 blocks((unsigned)((terms + kThreads - 1) / kThreads), lanes);
         sum_splits_kernel<<<blocks, kThreads, 0, stream>>>(num_part, den_part, num, den, nsplit,
                                                            terms);
         err = cudaGetLastError();
@@ -933,7 +968,7 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
     }
     if constexpr (LOSS) {
         const int nparts = ((Np + kHCols - 1) / kHCols) * nsplit;
-        sum_ll_kernel<<<1, kThreads, 0, stream>>>(ll_part, nparts, ll);
+        sum_ll_kernel<<<lanes, kThreads, 0, stream>>>(ll_part, nparts, ll);
     }
     return (int)cudaGetLastError();
 }
@@ -942,39 +977,41 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
 template <typename Y, bool TERMS, bool LOSS = true>
 int run_hloss(const float* W, const float* H, const Y* y, const Y* y2, float* num, float* den,
               float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,
-              int Mp, int Np, int bm, int m_real, int n_real, int nsplit, float eps, int device,
-              void* stream_ptr) {
+              int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,
+              int device, void* stream_ptr) {
     if (y2 != nullptr)
         return run_hloss_as<true, Y, TERMS, LOSS>(W, H, y, y2, num, den, num_part, den_part,
                                                   ll_part, ll, wperm, k, Mp, Np, bm, m_real,
-                                                  n_real, nsplit, eps, device, stream_ptr);
+                                                  n_real, nsplit, lanes, eps, device, stream_ptr);
     return run_hloss_as<false, Y, TERMS, LOSS>(W, H, y, y2, num, den, num_part, den_part, ll_part,
                                                ll, wperm, k, Mp, Np, bm, m_real, n_real, nsplit,
-                                               eps, device, stream_ptr);
+                                               lanes, eps, device, stream_ptr);
 }
 
-// The W pass of one instance: T (k, Mp), or (2k, Mp) for chain3_tile, over
-// nsplit column chunks (1 <= nsplit <= ceil(Np/32)); with nsplit > 1 the
-// caller passes (nsplit, n_out k, Mp) scratch in part, else it may be NULL.
+// The W pass of one instance for `lanes` pairs of factors W (lanes, k, Mp),
+// H (lanes, k, Np) over shared operands (1 <= lanes <= 65535): T
+// (lanes, k, Mp), or (2k, Mp) a lane for chain3_tile, over nsplit column
+// chunks (1 <= nsplit <= ceil(Np/32)); with nsplit > 1 the caller passes
+// (lanes, nsplit, n_out k, Mp) scratch in part, else it may be NULL.
 // The operand rows are copied as 16-byte vectors: Np % 4 == 0 and H, y, y2
 // 16-byte aligned.
 template <bool SECOND, typename Y, class E = Sweep>
 int run_wterms_as(const float* W, const float* H, const Y* y, const Y* y2, float* T, float* part,
-                  int k, int Mp, int Np, int bm, int n_real, int nsplit, float eps, int device,
-                  void* stream_ptr) {
+                  int k, int Mp, int Np, int bm, int n_real, int nsplit, int lanes, float eps,
+                  int device, void* stream_ptr) {
     const auto misaligned = [](const void* p) { return ((uintptr_t)p & 15u) != 0; };
-    if (!geometry_ok(k, Mp, Np, bm) || Np % 4 || nsplit < 1 || nsplit > (Np + kWCols - 1) / kWCols
+    if (!geometry_ok(k, Mp, Np, bm, lanes) || Np % 4 || nsplit < 1 || nsplit > (Np + kWCols - 1) / kWCols
         || (nsplit > 1 && part == nullptr) || misaligned(H) || misaligned(y) || misaligned(y2))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     err = dispatch_tk<WpassLauncher<SECOND, Y, E>>(k, W, H, y, y2, nsplit > 1 ? part : T, k, Mp,
-                                                   Np, bm, n_real, nsplit, eps, stream);
+                                                   Np, bm, n_real, nsplit, lanes, eps, stream);
     if (err != cudaSuccess) return (int)err;
     if (nsplit > 1) {
         const size_t count = (size_t)(E::kWForm == 2 ? 2 : 1) * k * Mp;
-        const int blocks = (int)((count + kThreads - 1) / kThreads);
+        const dim3 blocks((unsigned)((count + kThreads - 1) / kThreads), lanes);
         sum_parts_kernel<<<blocks, kThreads, 0, stream>>>(part, T, nsplit, count);
     }
     return (int)cudaGetLastError();
@@ -983,13 +1020,13 @@ int run_wterms_as(const float* W, const float* H, const Y* y, const Y* y2, float
 // The production W pass: T (k, Mp) from the operands y and, when given, y2.
 template <typename Y>
 int run_wterms(const float* W, const float* H, const Y* y, const Y* y2, float* T, float* part,
-               int k, int Mp, int Np, int bm, int n_real, int nsplit, float eps, int device,
-               void* stream_ptr) {
+               int k, int Mp, int Np, int bm, int n_real, int nsplit, int lanes, float eps,
+               int device, void* stream_ptr) {
     if (y2 != nullptr)
-        return run_wterms_as<true, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, eps,
-                                      device, stream_ptr);
-    return run_wterms_as<false, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, eps,
-                                   device, stream_ptr);
+        return run_wterms_as<true, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, lanes,
+                                      eps, device, stream_ptr);
+    return run_wterms_as<false, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, lanes,
+                                   eps, device, stream_ptr);
 }
 
 }  // namespace

@@ -20,8 +20,19 @@ Each kernel has a wrapper with two routes, chosen by where its tensors lie:
   The launch helpers here also serve the dense wrappers of
   :mod:`~nbmf_mm_tpu_torch.ops.dense_sweep`.
 
-``LAUNCHES`` counts kernel launches per wrapper, so a run can show that it
-went through the kernels.  Pad handling: the data, W's pad columns and H's
+Restarts and hyperparameter grids batch the factors: every wrapper also takes
+``W (R, k, Mp)`` with ``H (R, k, Np)`` over the same data and returns outputs
+with that leading lane axis (``ll`` of shape ``(R,)``), the batch dimension
+``jax.vmap`` gives the Pallas kernels.  On the card all lanes go through one
+launch (the lane is a grid dimension of the kernels) on the block split of
+the unbatched call, so lane ``r`` equals the unbatched call on
+``(W[r], H[r])`` bitwise; the plain version of a batched call is the
+unbatched plain version lane by lane (:func:`per_lane`), so the same holds
+on the CPU.
+
+``LAUNCHES`` counts kernel launches per wrapper and ``LANES`` the lanes those
+launches carried, so a run can show that it went through the kernels and
+with how many lanes.  Pad handling: the data, W's pad columns and H's
 pad columns are zero; the log-likelihood is masked exactly to
 ``row < m_real and col < n_real`` (the JAX packed kernel instead adds
 ``log(1 + eps)`` per pad entry).
@@ -36,6 +47,9 @@ import torch
 
 __all__ = [
     "LAUNCHES",
+    "LANES",
+    "MAX_LANES",
+    "per_lane",
     "PACKED_WORD_BITS",
     "resolve_device",
     "round_up",
@@ -59,7 +73,10 @@ __all__ = [
 PACKED_WORD_BITS = 32
 MAX_RANK = 256  # largest k the kernels take
 
+MAX_LANES = 65535  # largest lane count one launch takes (a grid dimension)
+
 LAUNCHES = {"hloss_terms_packed": 0, "w_terms_packed": 0}
+LANES = {"hloss_terms_packed": 0, "w_terms_packed": 0}
 
 # The W pass's block (csrc/sweep_kernels.cuh ``wpass_kernel``): 64 data rows
 # (two word rows) by a column chunk walked in 32-column tiles.
@@ -164,10 +181,10 @@ def bitplane_rows(Mp: int, bm: int, device=None) -> torch.Tensor:
 
 
 def apply_col_validity(H: torch.Tensor, n_real: int) -> torch.Tensor:
-    """Zero the pad columns (beyond ``n_real``) of a ``(k, Np)`` factor."""
-    if H.shape[1] == n_real:
+    """Zero the pad columns (beyond ``n_real``) of a ``(..., k, Np)`` factor."""
+    if H.shape[-1] == n_real:
         return H
-    col = torch.arange(H.shape[1], device=H.device)
+    col = torch.arange(H.shape[-1], device=H.device)
     return torch.where(col < n_real, H, 0.0)
 
 
@@ -217,13 +234,45 @@ def w_terms_packed_plain(W, H_new, words, words2=None, *, eps, n_real, bm):
 
 
 # ------------------------------------------------------------------ wrappers
-def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False):
+def lane_count(who, W, H) -> Optional[int]:
+    """``None`` for factors ``W (k, Mp)``, ``H (k, Np)``; ``R`` for batched
+    factors ``W (R, k, Mp)``, ``H (R, k, Np)``; anything else raises."""
+    if W.dim() == 2 and H.dim() == 2:
+        return None
+    if W.dim() != 3 or H.dim() != 3 or W.shape[0] != H.shape[0]:
+        raise ValueError(f"{who}: W and H must be (k, Mp) and (k, Np), or (R, k, Mp) and "
+                         f"(R, k, Np) with one R; got {tuple(W.shape)} and {tuple(H.shape)}")
+    if not 1 <= W.shape[0] <= MAX_LANES:
+        raise ValueError(f"{who}: one call takes 1 to {MAX_LANES} lanes, got {W.shape[0]}")
+    return W.shape[0]
+
+
+def per_lane(fn, W, H, *operands, **kw):
+    """The plain version of a batched call: ``fn(W[r], H[r], *operands)``
+    lane by lane, the outputs stacked.  It repeats the unbatched arithmetic
+    exactly, so a lane equals the unbatched call bitwise.  Unbatched factors
+    go straight to ``fn``."""
+    lanes = lane_count(getattr(fn, "__name__", "per_lane"), W, H)
+    if lanes is None:
+        return fn(W, H, *operands, **kw)
+    outs = [fn(W[r], H[r], *operands, **kw) for r in range(lanes)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(column) for column in zip(*outs))
+    return torch.stack(outs)
+
+
+def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False, batched=False):
     """Device, type, contiguity and shape checks before a launch: ``y``/``y2``
-    are int32 words ``(Mp//32, Np)``, or with ``dense`` f32 ``(Mp, Np)``."""
+    are int32 words ``(Mp//32, Np)``, or with ``dense`` f32 ``(Mp, Np)``.
+    Factors with a leading lane axis pass only with ``batched`` (the five
+    production passes).  Returns the lane count, ``None`` when unbatched."""
     if W.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {W.device}")
-    k, Mp = W.shape
-    Np = H.shape[1]
+    lanes = lane_count(who, W, H)
+    if lanes is not None and not batched:
+        raise ValueError(f"{who}: takes one pair of factors, W (k, Mp) and H (k, Np)")
+    k, Mp = W.shape[-2:]
+    Np = H.shape[-1]
     dev = W.device
     y_dtype = torch.float32 if dense else torch.int32
     for name, t, dtype in (("W", W, torch.float32), ("H", H, torch.float32),
@@ -236,8 +285,8 @@ def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False):
             raise TypeError(f"{who}: {name} must be {dtype} on CUDA, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous")
-    if H.shape[0] != k:
-        raise ValueError(f"{who}: H has {H.shape[0]} rows, W has {k}")
+    if H.shape[-2] != k:
+        raise ValueError(f"{who}: H has {H.shape[-2]} rows, W has {k}")
     if not 1 <= k <= MAX_RANK:
         raise ValueError(f"{who}: the CUDA kernel takes 1 <= k <= {MAX_RANK}, got k={k}")
     _check_stripe(Mp, bm, who)
@@ -245,6 +294,7 @@ def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False):
     for name, t in (("y", y), ("y2", y2)):
         if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{who}: {name} shape {tuple(t.shape)} != {shape}")
+    return lanes
 
 
 class WSplit(NamedTuple):
@@ -353,11 +403,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _check_aligned(who, **tensors):
-    """The kernels copy these operands' rows as 16-byte vectors."""
+def _check_aligned(who, lane_strides=(), **tensors):
+    """The kernels copy these operands' rows as 16-byte vectors, in every
+    lane: the base pointers and the lanes' strides (in floats) must be
+    multiples of 16 bytes."""
     for name, t in tensors.items():
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{who}: {name} must start on a 16-byte boundary")
+    for stride in lane_strides:
+        if stride % 4:
+            raise ValueError(f"{who}: a lane stride of {stride} floats breaks 16-byte alignment")
 
 
 def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=True,
@@ -367,32 +422,39 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
     without ll), the row split's partials (:func:`plan_h_split`) and W's
     bit-plane copy, and launch it on the current stream.  Returns
     ``(Num, Den, ll)``, ``Num``/``Den`` None without terms, ``ll`` None
-    without loss.  ``y`` may be None for an entry that reads no data."""
+    without loss.  ``y`` may be None for an entry that reads no data.
+
+    Factors with a leading lane axis ``R`` go through the one launch; every
+    output and scratch array gains that axis, and the split is planned as
+    for one lane, so a lane adds its partials in the unbatched order."""
     from ._build import load_library
 
-    _check_aligned(who, y=y, y2=y2)
+    lead = tuple(W.shape[:-2])  # () or (R,)
+    lanes = lead[0] if lead else 1
+    k, Mp = W.shape[-2:]
+    Np = H.shape[-1]
+    _check_aligned(who, (k * Mp, k * Np), y=y, y2=y2)
     lib = load_library()
-    k, Mp = W.shape
-    Np = H.shape[1]
     dev = W.device
     plan = plan_h_split(Mp, Np, k, torch.cuda.get_device_properties(dev).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=dev)
     ll = ll_part = None
     if loss:
-        ll = torch.empty((), **f32)
-        ll_part = torch.empty(-(-Np // H_COLS) * plan.nsplit, dtype=torch.float64, device=dev)
-    wperm = torch.empty((k, Mp), **f32)
+        ll = torch.empty(lead, **f32)
+        ll_part = torch.empty(lanes * -(-Np // H_COLS) * plan.nsplit, dtype=torch.float64,
+                              device=dev)
+    wperm = torch.empty((lanes, k, Mp), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     num = den = num_part = den_part = None
     outs = ()
     if terms:
-        num, den = torch.empty((k, Np), **f32), torch.empty((k, Np), **f32)
+        num, den = torch.empty((*lead, k, Np), **f32), torch.empty((*lead, k, Np), **f32)
         if plan.scratch is not None:
-            num_part, den_part = torch.empty(plan.scratch, **f32), torch.empty(plan.scratch, **f32)
+            num_part, den_part = (torch.empty((lanes, *plan.scratch), **f32) for _ in range(2))
         outs = (num.data_ptr(), den.data_ptr(), _ptr(num_part), _ptr(den_part))
     err = getattr(lib, entry)(W.data_ptr(), H.data_ptr(), _ptr(y), _ptr(y2), *outs,
                               _ptr(ll_part), _ptr(ll), wperm.data_ptr(), k, Mp, Np, bm, m_real,
-                              n_real, plan.nsplit, float(eps), dev.index or 0, stream)
+                              n_real, plan.nsplit, lanes, float(eps), dev.index or 0, stream)
     _raise_on_error(lib, who, err)
     return num, den, ll
 
@@ -401,23 +463,27 @@ def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
     """Allocate ``T (n_out k, Mp)`` and the split scratch
     (:func:`plan_w_split`) and launch a W-pass entry point on the current
     stream; ``y`` may be None for an entry that reads no data.  The kernel
-    copies ``H``'s and the operands' rows as 16-byte vectors."""
+    copies ``H``'s and the operands' rows as 16-byte vectors.  A leading lane
+    axis on the factors goes through the one launch, as in
+    :func:`_launch_hloss`."""
     from ._build import load_library
 
-    _check_aligned(who, H=H_new, y=y, y2=y2)
+    lead = tuple(W.shape[:-2])  # () or (R,)
+    lanes = lead[0] if lead else 1
+    k, Mp = W.shape[-2:]
+    Np = H_new.shape[-1]
+    _check_aligned(who, (k * Mp, k * Np), H=H_new, y=y, y2=y2)
     lib = load_library()
-    k, Mp = W.shape
-    Np = H_new.shape[1]
     dev = W.device
     plan = plan_w_split(Mp, Np, k, torch.cuda.get_device_properties(dev).multi_processor_count,
                         n_out)
-    T = torch.empty((n_out * k, Mp), dtype=torch.float32, device=dev)
-    part = None if plan.scratch is None else torch.empty(plan.scratch, dtype=torch.float32,
-                                                         device=dev)
+    T = torch.empty((*lead, n_out * k, Mp), dtype=torch.float32, device=dev)
+    part = None if plan.scratch is None else torch.empty((lanes, *plan.scratch),
+                                                         dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, entry)(
         W.data_ptr(), H_new.data_ptr(), _ptr(y), _ptr(y2), T.data_ptr(), _ptr(part),
-        k, Mp, Np, bm, n_real, plan.nsplit, float(eps), dev.index or 0, stream,
+        k, Mp, Np, bm, n_real, plan.nsplit, lanes, float(eps), dev.index or 0, stream,
     )
     _raise_on_error(lib, who, err)
     return T
@@ -436,20 +502,21 @@ def hloss_terms_packed(
 ):
     """Fused H-update + loss pass over packed words: ``(Num, Den, ll)``.
 
-    ``W`` is ``(k, Mp)``, ``H`` is ``(k, Np)``, ``words`` packs ``Ym``.
+    ``W`` is ``(k, Mp)``, ``H`` is ``(k, Np)``, or both with a leading lane
+    axis ``R`` (then every output has it too); ``words`` packs ``Ym``.
     ``words2=None`` takes the complement ``1 - Ym`` (unmasked and parity);
     an explicit ``words2`` packing ``(1 - Y) * mask`` serves
     ``mask_mode="corrected"``.  ``ll`` is the log-likelihood summed over the
     real ``(m_real, n_real)`` region.
     """
     if W.device.type == "cpu":
-        return hloss_terms_packed_plain(
-            W, H, words, words2, eps=eps, m_real=m_real, n_real=n_real, bm=bm
-        )
-    _check_cuda_operands("hloss_terms_packed", W, H, words, words2, bm)
+        return per_lane(hloss_terms_packed_plain, W, H, words, words2, eps=eps, m_real=m_real,
+                        n_real=n_real, bm=bm)
+    lanes = _check_cuda_operands("hloss_terms_packed", W, H, words, words2, bm, batched=True)
     out = _launch_hloss("nbmf_hloss_terms_packed", "hloss_terms_packed", W, H, words, words2,
                         eps=eps, m_real=m_real, n_real=n_real, bm=bm)
     LAUNCHES["hloss_terms_packed"] += 1
+    LANES["hloss_terms_packed"] += lanes or 1
     return out
 
 
@@ -463,16 +530,19 @@ def w_terms_packed(
     n_real: int,
     bm: int,
 ) -> torch.Tensor:
-    """Packed W-update contraction ``T = H P^T + (1 - H) Q^T`` (``(k, Mp)``).
+    """Packed W-update contraction ``T = H P^T + (1 - H) Q^T`` (``(k, Mp)``,
+    or ``(R, k, Mp)`` for factors with a leading lane axis).
 
     ``words2=None`` synthesizes the unmasked complement with column validity;
     an explicit ``words2`` (packing ``(1 - Y) * mask``) serves both masked
     modes.
     """
     if W.device.type == "cpu":
-        return w_terms_packed_plain(W, H_new, words, words2, eps=eps, n_real=n_real, bm=bm)
-    _check_cuda_operands("w_terms_packed", W, H_new, words, words2, bm)
+        return per_lane(w_terms_packed_plain, W, H_new, words, words2, eps=eps, n_real=n_real,
+                        bm=bm)
+    lanes = _check_cuda_operands("w_terms_packed", W, H_new, words, words2, bm, batched=True)
     T = _launch_wterms("nbmf_w_terms_packed", "w_terms_packed", W, H_new, words, words2,
                        eps=eps, n_real=n_real, bm=bm)
     LAUNCHES["w_terms_packed"] += 1
+    LANES["w_terms_packed"] += lanes or 1
     return T

@@ -24,9 +24,13 @@ bitwise, on the CPU and on the card.
 
 Each wrapper takes CPU tensors to its plain version and launches its kernel
 (``csrc/sweep_dense.cu``) for CUDA tensors, or raises; ``LAUNCHES`` counts
-the launches.  ``bm`` is the stripe whose bit-plane row order the kernels
-walk (the packed kernels' order, which keeps the two bitwise equal); the
-plain versions do not need it.
+the launches and ``LANES`` the lanes they carried.  The three production
+passes (not ``h_terms``) also take factors with a leading lane axis,
+``W (R, k, Mp)`` with ``H (R, k, Np)``, over the same data, as the packed
+passes do (:mod:`~nbmf_mm_tpu_torch.ops.cuda_sweep`): one launch for all
+lanes, each bitwise the unbatched call.  ``bm`` is the stripe whose
+bit-plane row order the kernels walk (the packed kernels' order, which keeps
+the two bitwise equal); the plain versions do not need it.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from . import cuda_sweep as cs
 
 __all__ = [
     "LAUNCHES",
+    "LANES",
     "hloss_terms_plain",
     "h_terms_plain",
     "w_terms_plain",
@@ -50,6 +55,7 @@ __all__ = [
 ]
 
 LAUNCHES = {"hloss_terms": 0, "h_terms": 0, "w_terms": 0, "loglik_sum": 0}
+LANES = {"hloss_terms": 0, "w_terms": 0, "loglik_sum": 0}
 
 
 # ------------------------------------------------------------ plain versions
@@ -109,13 +115,16 @@ def hloss_terms(
     n_real: int,
     bm: int,
 ):
-    """Fused dense H-update + loss pass: ``(Num, Den, ll)``."""
+    """Fused dense H-update + loss pass: ``(Num, Den, ll)``, each with the
+    factors' leading lane axis when they have one."""
     if W.device.type == "cpu":
-        return hloss_terms_plain(W, H, Ym, Yc, eps=eps, m_real=m_real, n_real=n_real)
-    cs._check_cuda_operands("hloss_terms", W, H, Ym, Yc, bm, dense=True)
+        return cs.per_lane(hloss_terms_plain, W, H, Ym, Yc, eps=eps, m_real=m_real,
+                           n_real=n_real)
+    lanes = cs._check_cuda_operands("hloss_terms", W, H, Ym, Yc, bm, dense=True, batched=True)
     out = cs._launch_hloss("nbmf_hloss_terms_dense", "hloss_terms", W, H, Ym, Yc,
                            eps=eps, m_real=m_real, n_real=n_real, bm=bm)
     LAUNCHES["hloss_terms"] += 1
+    LANES["hloss_terms"] += lanes or 1
     return out
 
 
@@ -131,6 +140,8 @@ def h_terms(
     """Dense H-update contractions alone: ``(Num, Den)`` (``(k, Np)`` each),
     the JAX ``h_terms``; no caller in the library, timed by the measurement
     path.  On the card bitwise the ``Num``/``Den`` of :func:`hloss_terms`."""
+    if cs.lane_count("h_terms", W, H) is not None:
+        raise ValueError("h_terms: takes one pair of factors, W (k, Mp) and H (k, Np)")
     if W.device.type == "cpu":
         return h_terms_plain(W, H, Ym, Yc, eps=eps)
     cs._check_cuda_operands("h_terms", W, H, Ym, Yc, bm, dense=True)
@@ -151,13 +162,15 @@ def w_terms(
     n_real: int,
     bm: int,
 ) -> torch.Tensor:
-    """Dense W-update contraction ``T = H P^T + (1 - H) Q^T`` (``(k, Mp)``)."""
+    """Dense W-update contraction ``T = H P^T + (1 - H) Q^T`` (``(k, Mp)``,
+    or ``(R, k, Mp)`` for factors with a leading lane axis)."""
     if W.device.type == "cpu":
-        return w_terms_plain(W, H_new, Ym, Ym2, eps=eps, n_real=n_real)
-    cs._check_cuda_operands("w_terms", W, H_new, Ym, Ym2, bm, dense=True)
+        return cs.per_lane(w_terms_plain, W, H_new, Ym, Ym2, eps=eps, n_real=n_real)
+    lanes = cs._check_cuda_operands("w_terms", W, H_new, Ym, Ym2, bm, dense=True, batched=True)
     T = cs._launch_wterms("nbmf_w_terms_dense", "w_terms", W, H_new, Ym, Ym2,
                           eps=eps, n_real=n_real, bm=bm)
     LAUNCHES["w_terms"] += 1
+    LANES["w_terms"] += lanes or 1
     return T
 
 
@@ -173,11 +186,14 @@ def loglik_sum(
     bm: int,
 ) -> torch.Tensor:
     """Masked Bernoulli log-likelihood of ``(W, H)`` over the real region (a
-    0-d tensor); on the card bitwise the ``ll`` of :func:`hloss_terms`."""
+    0-d tensor, or ``(R,)`` for factors with a leading lane axis); on the
+    card bitwise the ``ll`` of :func:`hloss_terms`."""
     if W.device.type == "cpu":
-        return loglik_sum_plain(W, H, Ym, Yc, eps=eps, m_real=m_real, n_real=n_real)
-    cs._check_cuda_operands("loglik_sum", W, H, Ym, Yc, bm, dense=True)
+        return cs.per_lane(loglik_sum_plain, W, H, Ym, Yc, eps=eps, m_real=m_real,
+                           n_real=n_real)
+    lanes = cs._check_cuda_operands("loglik_sum", W, H, Ym, Yc, bm, dense=True, batched=True)
     _, _, ll = cs._launch_hloss("nbmf_loglik_sum_dense", "loglik_sum", W, H, Ym, Yc,
                                 eps=eps, m_real=m_real, n_real=n_real, bm=bm, terms=False)
     LAUNCHES["loglik_sum"] += 1
+    LANES["loglik_sum"] += lanes or 1
     return ll

@@ -16,6 +16,12 @@ denominator and the objective (``1 - Ym`` in ``mask_mode="parity"``,
 
 Matrix products run through ``torch.matmul``; the solver switches TF32 off
 on CUDA so float32 products stay IEEE fp32.
+
+Restarts and hyperparameter grids batch the factors: :func:`mm_sweep` and
+:func:`map_objective` also take ``W (R, k, m)`` with ``H (R, k, n)`` over the
+same data, and then ``alpha``/``beta`` as floats or as one value per lane.
+They run the unbatched function lane by lane and stack the results, so lane
+``r`` equals the unbatched call on ``(W[r], H[r])`` bitwise, on every device.
 """
 
 from __future__ import annotations
@@ -99,6 +105,12 @@ def _w_update(W, H_new, Ym, Ym2, n_real, eps, projection):
     return W_new
 
 
+def _lane_value(x, r: int) -> float:
+    """Lane ``r``'s value of a hyperparameter given as one float for all
+    lanes or as one value per lane."""
+    return float(x) if isinstance(x, (int, float)) else float(x[r])
+
+
 def mm_sweep(
     W: torch.Tensor,
     H: torch.Tensor,
@@ -115,8 +127,14 @@ def mm_sweep(
     """One full MM sweep: H update (old W) then W update (new H).
 
     ``n_real`` is the number of columns of the data matrix, the MM scaling
-    constant of the simplex step (reference ``_solver.py:54``).
+    constant of the simplex step (reference ``_solver.py:54``).  Batched
+    factors ``(R, k, m)``, ``(R, k, n)`` sweep lane by lane.
     """
+    if W.dim() == 3:
+        lanes = [mm_sweep(W[r], H[r], Ym, Ym2, Yc, alpha=_lane_value(alpha, r),
+                          beta=_lane_value(beta, r), n_real=n_real, eps=eps,
+                          projection=projection) for r in range(W.shape[0])]
+        return torch.stack([w for w, _ in lanes]), torch.stack([h for _, h in lanes])
     H_new = _h_update(W, H, Ym, Yc, alpha, beta, eps)
     W_new = _w_update(W, H_new, Ym, Ym2, n_real, eps, projection)
     return W_new, H_new
@@ -137,7 +155,13 @@ def map_objective(
 
     ``loss = -(sum(Ym log(WH+eps) + Yc log(1-WH+eps))
               + (alpha-1) sum(log(H+eps)) + (beta-1) sum(log(1-H+eps))) / n_obs``
+
+    Batched factors give one loss per lane, ``(R,)``.
     """
+    if W.dim() == 3:
+        return torch.stack([map_objective(W[r], H[r], Ym, Yc, alpha=_lane_value(alpha, r),
+                                          beta=_lane_value(beta, r), n_obs=n_obs, eps=eps)
+                            for r in range(W.shape[0])])
     WH = W.T @ H
     log_lik = Ym * torch.log(WH + eps) + Yc * torch.log(torch.clamp_min(1.0 - WH, 0.0) + eps)
     prior_a = (alpha - 1.0) * torch.sum(torch.log(H + eps))

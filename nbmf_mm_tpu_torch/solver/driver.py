@@ -1,7 +1,8 @@
 """NBMF-MM solver driver on PyTorch (counterpart of
 the JAX package's ``solver/driver.py``).
 
-Two loops solve one initialization, both on the caller's device:
+Two loops solve one initialization, or a batch of them in lockstep, both on
+the caller's device:
 
 - :func:`_solve_core` — the plain loop (counterpart of the JAX ``"jnp"``
   route): :func:`~nbmf_mm_tpu_torch.ops.updates.mm_sweep` and
@@ -14,13 +15,22 @@ Two loops solve one initialization, both on the caller's device:
   (:mod:`~nbmf_mm_tpu_torch.ops.dense_sweep`) for ``[0, 1]``-valued data
   and weighted masks; ``packed`` chooses, as in the JAX package.
 
-Both read the stopping flag back to the host once per sweep and leave the
-loop when it is set; for one initialization that gives the results of the
-JAX package's freeze-select loop.  The "dir-beta" orientation runs the
-beta-dir loop on ``Y.T`` with the factors swapped, as the reference does.
-Random inits come from a CPU ``torch.Generator`` seeded with
-``random_state`` and then move to the device, so a seed gives the same
-inits on the CPU and on the card (they differ from JAX ``PRNGKey`` draws).
+Restarts (``n_init > 1``) and hyperparameter grids
+(:func:`~nbmf_mm_tpu_torch.parallel.grid.grid_solve`) are one mechanism, as
+in the JAX package, where it is ``jax.vmap`` of the solver core: the factors
+carry a leading lane axis ``R`` (``W0 (R, k, m)``, ``H0 (R, k, n)``), the data
+is staged once and shared, and ``alpha``/``beta`` are floats or one value per
+lane.  The lanes go through every kernel launch together, and the loops keep
+the JAX freeze semantics: a lane that has converged keeps its factors,
+losses and counter by selects while the others run on, so each lane ends
+where its own solve would.  Both loops read one stopping flag (all lanes
+done) back to the host once per sweep and leave the loop when it is set.
+The "dir-beta" orientation runs the beta-dir loop on ``Y.T`` with the factors
+swapped, as the reference does.  Random inits come from a CPU
+``torch.Generator`` seeded with ``random_state``
+(:func:`_random_uniform_inits`) and then move to the device, so a seed gives
+the same inits on the CPU and on the card (they differ from JAX ``PRNGKey``
+draws).
 
 Input that is packed already (:class:`~nbmf_mm_tpu_torch.ops.packed.PackedMatrix`)
 or sparse (``scipy.sparse`` data, alone or under a sparse mask) reaches the
@@ -33,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
+from functools import partial
 from typing import List, Optional
 
 import numpy as np
@@ -46,7 +57,7 @@ from ..ops.packed import (
     pack_matrix_sparse,
     pack_sparse_words,
 )
-from ..ops.projection import project_columns_simplex_duchi
+from ..ops.projection import project_simplex_duchi
 from ..ops.updates import (
     clip_upper_interior,
     map_objective,
@@ -169,41 +180,120 @@ def _resolve_precision(precision) -> None:
     raise _not_ported(f"precision={precision!r}", "Dense and precision routes")
 
 
-def _check_converged(prev: torch.Tensor, loss: torch.Tensor, tol: float) -> bool:
-    """The reference's relative-change rule (``_solver.py:169-175``)."""
-    return bool(torch.abs(prev - loss) / torch.abs(prev) < tol)
+def _random_uniform_inits(seed: int, n_init: int, m: int, n: int, k: int, dtype):
+    """Reference-style U(0.1, 0.9) initialization (``_solver.py:126-129``),
+    batched over ``n_init`` restarts: ``W0 (n_init, m, k)`` drawn first, then
+    ``H0 (n_init, k, n)``, from a CPU generator, so that a seed gives the same
+    numbers wherever the solve runs.  With ``n_init == 1`` they are the draws
+    of a single fit."""
+    gen = torch.Generator().manual_seed(seed)
+    W0 = torch.rand((n_init, m, k), generator=gen, dtype=dtype) * 0.8 + 0.1
+    H0 = torch.rand((n_init, k, n), generator=gen, dtype=dtype) * 0.8 + 0.1
+    return W0, H0
 
 
-def _solve_core(Ym, Ym2, Yc, W0, H0, *, alpha, beta, tol, eps, n_obs, n_real,
+def _is_scalar(x) -> bool:
+    return isinstance(x, (int, float))
+
+
+def _prior_minus_one(x, lead, dtype: torch.dtype, device: torch.device):
+    """``x - 1`` for a prior parameter: a float stays a float; one value per
+    lane becomes a tensor of shape ``lead`` in the compute dtype on
+    ``device``, subtracted in float64 first, so that a lane computes with
+    exactly the number a float argument would give it."""
+    if _is_scalar(x):
+        return float(x) - 1.0
+    values = torch.as_tensor(x, dtype=torch.float64).reshape(lead) - 1.0
+    return values.to(device=device, dtype=dtype)
+
+
+def _over_factor(x):
+    """A per-lane value broadcast over the lanes' ``(k, n)`` factors."""
+    return x[..., None, None] if isinstance(x, torch.Tensor) else x
+
+
+def _relative_change(prev: torch.Tensor, loss: torch.Tensor) -> torch.Tensor:
+    """The reference's stopping measure (``_solver.py:169-175``); NaN, which
+    is below no tolerance, while ``prev`` is infinite."""
+    return torch.abs(prev - loss) / torch.abs(prev)
+
+
+def _loop_state(W0: torch.Tensor, max_iter: int):
+    """``(lead, losses, prev, done, n_iter)`` at the start of a loop over
+    factors with leading lane axes ``lead`` (none for one initialization)."""
+    lead = tuple(W0.shape[:-2])
+    kw = dict(dtype=W0.dtype, device=W0.device)
+    return (lead, torch.zeros((*lead, max_iter), **kw), torch.full(lead, float("inf"), **kw),
+            torch.zeros(lead, dtype=torch.bool, device=W0.device),
+            torch.zeros(lead, dtype=torch.int64, device=W0.device))
+
+
+def _keep_frozen(done, W, H, W_new, H_new, lead):
+    """The swept factors, with the lanes that are ``done`` left as they were.
+    One initialization has no frozen state to keep (its loop ends when it is
+    done), so it takes the new factors without a select or a copy."""
+    if not lead:
+        return W_new, H_new
+    frozen = _over_factor(done)
+    return torch.where(frozen, W, W_new), torch.where(frozen, H, H_new)
+
+
+def _loop_result(W, H, losses, n_iter, final_loss, done, lead):
+    """The cores' return: per-lane tensors for a batch, and for one
+    initialization ``n_iter`` and ``done`` as an int and a bool."""
+    if lead:
+        return W, H, losses, n_iter, final_loss, done
+    return W, H, losses, int(n_iter), final_loss, bool(done)
+
+
+def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
                 max_iter: int, projection: str, verbose: int):
-    """Plain MM loop for one initialization (internal beta-dir layout:
-    ``W0`` is ``(k, m)`` with unit column sums, ``H0`` is ``(k, n)``).
+    """Plain MM loop (internal beta-dir layout: ``W0`` is ``(k, m)`` with
+    unit column sums, ``H0`` is ``(k, n)``), the counterpart of the JAX
+    ``_solve_core``/``_mm_loop``, with the same positional arguments.
 
-    Returns ``(W, H, losses, n_iter, converged)`` with ``losses`` a
-    ``(max_iter,)`` tensor whose entries past ``n_iter`` are zero.
+    ``W0 (R, k, m)`` with ``H0 (R, k, n)`` solves ``R`` lanes in lockstep
+    over the same data, ``alpha``/``beta`` floats or one value per lane; a
+    lane that has converged is frozen by selects (its stopping sweep's
+    update is kept, as in ``_mm_loop``) while the loop runs on until every
+    lane has stopped or ``max_iter`` is reached.
+
+    Returns ``(W, H, losses, n_iter, final_loss, done)`` with ``losses`` a
+    ``(max_iter,)`` buffer per lane whose entries past ``n_iter`` are zero;
+    ``n_iter``, ``final_loss`` and ``done`` are per-lane tensors for a batch
+    (an int, a 0-d tensor and a bool for one initialization).
     """
+    lead, losses, prev, done, n_iter = _loop_state(W0, max_iter)
+    if not _is_scalar(alpha):  # one host copy, read lane by lane
+        alpha = torch.as_tensor(alpha, dtype=torch.float64).reshape(lead).cpu().numpy()
+    if not _is_scalar(beta):
+        beta = torch.as_tensor(beta, dtype=torch.float64).reshape(lead).cpu().numpy()
     W, H = W0, H0
-    losses = torch.zeros(max_iter, dtype=W0.dtype, device=W0.device)
-    prev = torch.tensor(float("inf"), dtype=W0.dtype, device=W0.device)
-    it, done = 0, False
-    while it < max_iter and not done:
-        W, H = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta, n_real=n_real,
-                        eps=eps, projection=projection)
-        loss = map_objective(W, H, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs, eps=eps)
-        if verbose > 0 and it % 10 == 0:
+    it, all_done = 0, False
+    while it < max_iter and not all_done:
+        W_new, H_new = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta, n_real=n_real,
+                                eps=eps, projection=projection)
+        loss = map_objective(W_new, H_new, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs, eps=eps)
+        if verbose > 0 and not lead and it % 10 == 0:
             print(f"Iter {it}: Loss = {float(loss)}")
-        losses[it] = loss
-        # The stopping sweep's loss is still recorded: len(losses) == n_iter.
-        done = it > 0 and _check_converged(prev, loss, tol)
-        prev = loss
+        # The stopping sweep's update and loss are kept (len(losses) ==
+        # n_iter); a lane frozen earlier keeps its carry.
+        W, H = _keep_frozen(done, W, H, W_new, H_new, lead)
+        losses[..., it] = torch.where(done, losses[..., it], loss)
+        newly_done = (_relative_change(prev, loss) < tol) if it > 0 else False
+        prev = torch.where(done, prev, loss)
+        n_iter = torch.where(done, n_iter, it + 1)
+        done = done | newly_done
         it += 1
-    return W, H, losses, it, done
+        all_done = it > 1 and bool(done.all())  # the sweep's one host read
+    return _loop_result(W, H, losses, n_iter, prev, done, lead)
 
 
-def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, *, packed: bool, alpha, beta, tol, eps,
-                      n_obs, m_real: int, n_real: int, bm: int, max_iter: int, projection: str,
+def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, packed: bool, eps,
+                      m_real: int, n_real: int, bm: int, max_iter: int, projection: str,
                       verbose: int):
-    """Shifted-loss MM loop of the H and W kernels (``_solve_core_pallas``).
+    """Shifted-loss MM loop of the H and W kernels (``_solve_core_pallas``,
+    with its positional arguments).
 
     The loss the reference reports after sweep ``t`` is evaluated on the same
     ``W.T @ H`` that the next sweep's H pass forms, so both come out of one
@@ -218,8 +308,20 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, *, packed: bool, alpha, beta, to
     operand (corrected mode's ``Yc``, else None), ``Y2_w`` the W pass's
     (``Ym2`` in both masked modes, else None); in corrected mode they are one
     buffer.  Operands are padded to ``(Mp, Np)``; results come back padded.
+
+    ``W0p (R, k, Mp)`` with ``H0p (R, k, Np)`` solves ``R`` lanes in lockstep:
+    each kernel call carries all lanes over the one copy of the data,
+    ``alpha``/``beta`` are floats or one value per lane, and a lane whose
+    stopping test has fired keeps its factors, its counter and its last
+    recorded loss by selects (``_solve_core_pallas``'s ``done_out``) while
+    the others run on; frozen lanes still go through the kernels.  The loop
+    ends when every lane has stopped or ``max_iter`` is reached, and the
+    fill is selected per lane.  Returns as :func:`_solve_core`.
     """
     dtype, device = W0p.dtype, W0p.device
+    lead, losses, prev, done, n_iter = _loop_state(W0p, max_iter)
+    am1 = _prior_minus_one(alpha, lead, dtype, device)
+    bm1 = _prior_minus_one(beta, lead, dtype, device)
     upper = clip_upper_interior(eps, dtype)
     h_pass = cs.hloss_terms_packed if packed else ds.hloss_terms
     w_pass = cs.w_terms_packed if packed else ds.w_terms
@@ -233,50 +335,56 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, *, packed: bool, alpha, beta, to
         return ds.loglik_sum(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm)
 
     def objective_from_ll(ll, H):
-        H_real = H[:, :n_real]
-        prior_a = (alpha - 1.0) * torch.sum(torch.log(H_real + eps))
-        prior_b = (beta - 1.0) * torch.sum(torch.log(1.0 - H_real + eps))
+        H_real = H[..., :n_real]
+        prior_a = am1 * torch.sum(torch.log(H_real + eps), dim=(-2, -1))
+        prior_b = bm1 * torch.sum(torch.log(1.0 - H_real + eps), dim=(-2, -1))
         return -(ll + prior_a + prior_b) / n_obs
 
     def finish_sweep(W, H, Num, Den):
-        num = H * Num + (alpha - 1.0)
-        den = (1.0 - H) * Den + (beta - 1.0)
+        num = H * Num + _over_factor(am1)
+        den = (1.0 - H) * Den + _over_factor(bm1)
         H_new = cs.apply_col_validity(torch.clamp(num / (num + den + eps), eps, upper), n_real)
         T = w_pass(W, H_new, Y1, Y2_w, eps=eps, n_real=n_real, bm=bm)
         W_raw = W * T
         if projection == "normalize":
             W_new = W_raw / n_real
-            col_sums = W_new.sum(dim=0, keepdim=True)
+            col_sums = W_new.sum(dim=-2, keepdim=True)
             W_new = W_new / torch.where(col_sums > 0, col_sums, 1.0)
         else:  # duchi: re-zero the pad columns the projection would fill
-            W_new = cs.apply_col_validity(project_columns_simplex_duchi(W_raw / n_real), m_real)
+            W_new = cs.apply_col_validity(project_simplex_duchi(W_raw / n_real, dim=-2), m_real)
         return W_new, H_new
 
     W, H = W0p, H0p
-    losses = torch.zeros(max_iter, dtype=dtype, device=device)
-    prev = torch.tensor(float("inf"), dtype=dtype, device=device)
-    it, done = 0, False
+    it, all_done = 0, False
     while it < max_iter:
         Num, Den, ll = hloss(W, H)
         if it >= 1:
             loss = objective_from_ll(ll, H)  # loss of sweep it-1
-            if verbose > 0 and (it - 1) % 10 == 0:
+            if verbose > 0 and not lead and (it - 1) % 10 == 0:
                 print(f"Iter {it - 1}: Loss = {float(loss)}")
-            losses[it - 1] = loss
-            # Needs two recorded losses; on a stop the carry stays as it is.
-            done = it >= 2 and _check_converged(prev, loss, tol)
-            if done:
+            live = ~done
+            losses[..., it - 1] = torch.where(live, loss, losses[..., it - 1])
+            if it >= 2:  # the stopping test needs two recorded losses
+                done = done | (_relative_change(prev, loss) < tol)
+                all_done = bool(done.all())  # the sweep's one host read
+            prev = torch.where(live, loss, prev)
+            if all_done:
                 break
-            prev = loss
-        W, H = finish_sweep(W, H, Num, Den)
+        W, H = _keep_frozen(done, W, H, *finish_sweep(W, H, Num, Den), lead)
+        n_iter = torch.where(done, n_iter, it + 1)
         it += 1
 
-    if not done:
-        # max_iter ran out: the last sweep's loss was never recorded.
+    final_loss = prev
+    if not all_done:
+        # max_iter ran out for the live lanes: their last sweep's loss was
+        # never recorded.  Their counters stand at ``it``.
         loss_fin = objective_from_ll(final_ll(W, H), H)
-        losses[max(it - 1, 0)] = loss_fin
-        done = it >= 2 and _check_converged(prev, loss_fin, tol)
-    return W, H, losses, it, done
+        live, last = ~done, max(it - 1, 0)
+        losses[..., last] = torch.where(live, loss_fin, losses[..., last])
+        final_loss = torch.where(live, loss_fin, prev)
+        if it >= 2:
+            done = done | (live & (_relative_change(prev, loss_fin) < tol))
+    return _loop_result(W, H, losses, n_iter, final_loss, done, lead)
 
 
 def _renormalize_drifted(A: torch.Tensor, dim: int) -> torch.Tensor:
@@ -325,6 +433,20 @@ def _to_tensor(A, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def _pad(A: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return torch.nn.functional.pad(A, (0, cols - A.shape[1], 0, rows - A.shape[0])).contiguous()
+
+
+def _pad_last(A: torch.Tensor, cols: int) -> torch.Tensor:
+    """Zero-pad the last axis of a batch of factors to ``cols``."""
+    return torch.nn.functional.pad(A, (0, cols - A.shape[-1])).contiguous()
+
+
+def _internal_simplex_factor(W_ext: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """One external ``(m, k)`` init in the internal layout on ``device``:
+    ``(k, m)`` with unit column sums.  Zero columns (a returned factor's
+    fully-unobserved samples) stay zero instead of 0/0."""
+    W0 = W_ext.T.to(device)
+    W0_sums = W0.sum(dim=0, keepdim=True)
+    return (W0 / torch.where(W0_sums > 0, W0_sums, 1.0)).contiguous()
 
 
 def _masked_operands(Y, mask):
@@ -469,7 +591,17 @@ def solve(
       mask raises;
     - ``projection``: ``"normalize"`` or ``"duchi"``;
     - ``W_init``/``H_init``, renormalized with the zero-column guard;
-      ``max_iter=0`` returns the initial factors untouched;
+      ``max_iter=0`` returns the (first restart's) initial factors untouched;
+    - ``n_init``: that many random restarts as one batched solve over data
+      staged once, on every data route (dense, ``PackedMatrix``, sparse): the
+      lanes share each kernel launch, and the restart with the lowest final
+      objective is returned (the first on a tie; a NaN counts as lowest, as
+      in the JAX package), with ``best_restart`` and ``all_final_losses``
+      filled.  It excludes custom inits and prints no per-sweep losses;
+    - ``return_all`` (needs ``n_init > 1``): every restart in ``extras`` as
+      host numpy arrays, ``all_W (n_init, m, k)``, ``all_H (n_init, k, n)``,
+      ``all_n_iter``, ``all_losses (n_init, max_iter)`` and ``all_converged``
+      (also under ``device_results``);
     - ``dtype``: float32 (default) or float64; ``precision``: ``None`` or
       ``"highest"`` (IEEE fp32 products: TF32 is off inside the call and the
       caller's settings are restored on exit);
@@ -487,8 +619,8 @@ def solve(
       ``device``; only ``n_iter``, ``converged`` and the safeguard's drift
       are read back to the host.
 
-    ``n_init > 1``, ``return_all``, ``mesh``, ``dtype="bfloat16"`` and
-    precisions ``"default"``/``"high"`` raise ``NotImplementedError``.
+    ``mesh``, ``dtype="bfloat16"`` and precisions ``"default"``/``"high"``
+    raise ``NotImplementedError``.
     """
     if orientation not in _ORIENTATIONS:
         raise ValueError(f"orientation must be one of {_ORIENTATIONS}, got {orientation!r}")
@@ -498,8 +630,6 @@ def solve(
         raise ValueError(f"mask_mode must be 'parity' or 'corrected', got {mask_mode!r}")
     if n_init < 1:
         raise ValueError(f"n_init must be >= 1, got {n_init}")
-    if n_init > 1 or return_all:
-        raise _not_ported("n_init > 1 and return_all", "Restarts and grids")
     if mesh is not None:
         raise _not_ported("mesh", "Multi-GPU")
     _resolve_precision(precision)
@@ -544,21 +674,20 @@ def solve(
     seed = (int(np.random.SeedSequence().entropy % (2**63)) if random_state is None
             else int(random_state))
 
-    # U(0.1, 0.9) inits from a CPU generator, then moved to the device.
-    gen = torch.Generator().manual_seed(seed)
-    W0_draw = torch.rand((m, k), generator=gen, dtype=dtype) * 0.8 + 0.1
-    H0_draw = torch.rand((k, n), generator=gen, dtype=dtype) * 0.8 + 0.1
-    W0_ext = W0_draw if W_init is None else torch.tensor(np.asarray(W_init), dtype=dtype)
-    H0 = H0_draw if H_init is None else torch.tensor(np.asarray(H_init), dtype=dtype)
-    if tuple(W0_ext.shape) != (m, k):
-        raise ValueError(f"W_init must have shape {(m, k)}, got {tuple(W0_ext.shape)}")
-    if tuple(H0.shape) != (k, n):
-        raise ValueError(f"H_init must have shape {(k, n)}, got {tuple(H0.shape)}")
-    # Internal layout: W is (k, m) with unit column sums.  Zero columns (a
-    # returned factor's fully-unobserved samples) stay zero instead of 0/0.
-    W0 = W0_ext.T.to(device)
-    W0_sums = W0.sum(dim=0, keepdim=True)
-    W0 = (W0 / torch.where(W0_sums > 0, W0_sums, 1.0)).contiguous()
+    custom_init = W_init is not None or H_init is not None
+    if custom_init and n_init > 1:
+        raise ValueError("n_init > 1 is incompatible with explicit W_init/H_init")
+    # U(0.1, 0.9) inits with a leading restart axis, then moved to the device.
+    W0_ext, H0 = _random_uniform_inits(seed, n_init, m, n, k, dtype)
+    if W_init is not None:
+        W0_ext = torch.tensor(np.asarray(W_init), dtype=dtype)[None]
+    if H_init is not None:
+        H0 = torch.tensor(np.asarray(H_init), dtype=dtype)[None]
+    if tuple(W0_ext.shape[1:]) != (m, k):
+        raise ValueError(f"W_init must have shape {(m, k)}, got {tuple(W0_ext.shape[1:])}")
+    if tuple(H0.shape[1:]) != (k, n):
+        raise ValueError(f"H_init must have shape {(k, n)}, got {tuple(H0.shape[1:])}")
+    W0 = torch.stack([_internal_simplex_factor(w, device) for w in W0_ext])  # (n_init, k, m)
     H0 = H0.to(device).contiguous()
 
     if mask is None:
@@ -573,8 +702,12 @@ def solve(
                 "objective is undefined with n_obs == 0"
             )
 
+    if return_all and n_init <= 1:
+        raise ValueError("return_all requires n_init > 1")
+
     if max_iter <= 0:
-        W_final, H_final = (H0.T, W0) if transposed else (W0.T, H0)
+        # The first restart's factors, as the JAX package returns them.
+        W_final, H_final = (H0[0].T, W0[0]) if transposed else (W0[0].T, H0[0])
         W_final, H_final, losses = _results(
             W_final, H_final, torch.zeros(0, dtype=dtype, device=device),
             device_results=device_results)
@@ -582,8 +715,10 @@ def solve(
                             time_elapsed=time.time() - t_start, n_iter=0, converged=False,
                             seed=seed)
 
-    hypers = dict(alpha=alpha, beta=beta, tol=tol, eps=eps, n_obs=n_obs,
-                  max_iter=max_iter, projection=projection, verbose=verbose)
+    # One initialization solves unbatched; restarts go through the same core
+    # with a leading lane axis on the factors, and print nothing per sweep.
+    loop = dict(max_iter=max_iter, projection=projection,
+                verbose=verbose if n_init == 1 else 0)
     if route == "fused":
         # The operands the kernels stream (the JAX package's driver.py:957-977):
         # Y1 = Ym = Y or Y*mask, Y2 = Ym2 = (1-Y)*mask when masked; corrected
@@ -605,16 +740,29 @@ def solve(
             if packed is True and not use_packed:
                 raise ValueError("packed=True requires exactly binary data (and mask)")
         del Y, mask, words
-        W, H, losses, n_iter, done = _solve_core_fused(
-            Y1, Y2 if mask_mode == "corrected" else None, Y2,
-            _pad(W0, k, Mp), _pad(H0, k, Np), packed=use_packed, m_real=m, n_real=n, bm=bm,
-            **hypers,
-        )
-        W, H = W[:, :m], H[:, :n]
+        core = partial(_solve_core_fused, packed=use_packed, eps=eps, m_real=m, n_real=n, bm=bm,
+                       **loop)
+        data = (Y1, Y2 if mask_mode == "corrected" else None, Y2)
+        inits = (_pad_last(W0, Mp), _pad_last(H0, Np))
+        hypers = (alpha, beta, tol, n_obs)
     else:
         use_packed = False
-        Ym, Ym2, Yc = precompute_masked_terms(Y, mask, mask_mode)
-        W, H, losses, n_iter, done = _solve_core(Ym, Ym2, Yc, W0, H0, n_real=n, **hypers)
+        core = partial(_solve_core, **loop)
+        data = precompute_masked_terms(Y, mask, mask_mode)
+        inits = (W0, H0)
+        hypers = (alpha, beta, tol, eps, n_obs, n)
+
+    all_results = all_final = None
+    if n_init == 1:
+        best = 0
+        W, H, losses, n_iter, _, done = core(*data, inits[0][0], inits[1][0], *hypers)
+    else:
+        from ..parallel.restarts import vmapped_solve  # the package imports this module
+
+        (W, H, losses, n_iter, _, done), best, all_final, all_results = vmapped_solve(
+            core, data, inits, hypers, keep_all=return_all)
+        n_iter, done, all_final = int(n_iter), bool(done), all_final.cpu().numpy()
+    W, H = W[:, :m], H[:, :n]  # the fused loop's results come back padded
 
     W_final, H_final = (H.T, W) if transposed else (W.T, H)  # external (m, k), (k, n)
     W_final, H_final = _final_simplex_safeguard(W_final, H_final, orientation)
@@ -622,16 +770,34 @@ def solve(
         print(f"Converged at iteration {n_iter - 1}")
     W_final, H_final, losses = _results(W_final, H_final, losses[:n_iter],
                                         device_results=device_results)
-    return SolverResult(
+    result = SolverResult(
         W=W_final,
         H=H_final,
         losses=losses,
         time_elapsed=time.time() - t_start,
         n_iter=n_iter,
         converged=done,
+        best_restart=best,
+        all_final_losses=all_final,
         seed=seed,
         extras={"backend": route, "packed": use_packed},
     )
+    if all_results is not None:
+        _attach_all_results(result, all_results, m=m, n=n, transposed=transposed)
+    return result
+
+
+def _attach_all_results(result: SolverResult, all_results, *, m: int, n: int,
+                        transposed: bool) -> None:
+    """Fill ``result.extras`` with every restart's factors and trace (the
+    ``return_all`` contract), as host numpy arrays in external notation."""
+    aW, aH, a_losses, a_n_iter, _, a_done = (x.cpu().numpy() for x in all_results)
+    all_W = np.swapaxes(aW[:, :, :m], 1, 2)  # internal (n_init, k, Mp) -> (n_init, m, k)
+    all_H = aH[:, :, :n]
+    if transposed:
+        all_W, all_H = np.swapaxes(all_H, 1, 2), np.swapaxes(all_W, 1, 2)
+    result.extras.update(all_W=all_W, all_H=all_H, all_n_iter=a_n_iter, all_losses=a_losses,
+                         all_converged=a_done)
 
 
 def nbmf_mm_solver(

@@ -8,5 +8,6 @@ library's dense passes; the others time the probes of
 matmul, elementwise and memory-stream costs.  ``sass_diff`` compares the
 kernels' compiled code with that of another copy of the sources, and
 ``wpass_tune`` and ``hpass_tune`` time variants of the W and H passes to
-split their time by phase.
+split their time by phase; ``ab_time`` times the production kernels and the
+fused loops of one tree, for comparing two trees on one card.
 """

@@ -1,0 +1,51 @@
+"""Time the five production kernels (one pair of factors) and the two fused
+loops at the headline size from one tree, for comparing two trees on one card.
+
+    python -m nbmf_mm_tpu_torch.tools.ab_time [--root DIR] [--label NAME]
+
+``--root`` is a checkout (or a ``git archive`` of a commit unpacked into a
+git-ignored directory) that holds ``chip_smoke.py`` and the package; the
+script imports both from there, builds that tree's kernels and prints one
+``AB`` line with ``chip_smoke.time_kernels``' ms per call and
+``chip_smoke.loop_ms_per_sweep``'s ms/sweep, packed and dense, and the card's
+name and power limit.  To compare a change with its parent, run parent,
+change, change, parent (and more turns) as separate processes inside one
+call on the card, and compare medians.  Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import os
+import sys
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=".", help="the tree to time")
+    parser.add_argument("--label", default="here", help="name printed on the AB line")
+    args = parser.parse_args(argv)
+    root = os.path.abspath(args.root)
+    os.chdir(root)
+    sys.path.insert(0, root)
+    for name in [m for m in sys.modules if m.split(".")[0] in ("chip_smoke",
+                                                               "nbmf_mm_tpu_torch")]:
+        del sys.modules[name]  # this process times the tree at --root, not the caller's
+    sm = importlib.import_module("chip_smoke")
+    ops = "nbmf_mm_tpu_torch.ops."
+    build, cs, ds = (importlib.import_module(ops + name)
+                     for name in ("_build", "cuda_sweep", "dense_sweep"))
+    build.load_library()
+    card = sm.card_line()
+    k = sm.HEADLINE["k"]
+    X, P = sm.headline_matrix(), sm.mean_matrix()
+    times = sm.time_kernels(X, P, k, card, cs, ds)
+    packed = sm.loop_ms_per_sweep("binary", X, k, True, card, cs)
+    dense = sm.loop_ms_per_sweep("dense", P, k, False, card, cs)
+    print("AB", args.label, " ".join(f"{name}={t['ms']:.4f}" for name, t in times.items()),
+          f"loop_binary={packed:.3f} loop_dense={dense:.3f} [{card}]", flush=True)
+
+
+if __name__ == "__main__":
+    main()

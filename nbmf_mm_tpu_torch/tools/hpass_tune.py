@@ -89,7 +89,7 @@ def main(argv=None):
     def call(fn, nsplit):
         err = fn(W.data_ptr(), H.data_ptr(), words.data_ptr(), None, num.data_ptr(),
                  den.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), ll_part.data_ptr(),
-                 ll.data_ptr(), wperm.data_ptr(), k, Mp, Np, 256, Mp, Np, nsplit, 1e-8,
+                 ll.data_ptr(), wperm.data_ptr(), k, Mp, Np, 256, Mp, Np, nsplit, 1, 1e-8,
                  dev.index or 0, stream)
         if err:
             raise RuntimeError(f"hpass_tune: CUDA error {err}")

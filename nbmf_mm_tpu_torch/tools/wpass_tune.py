@@ -39,7 +39,7 @@ from .bench_true import arg_parser, device_of, random_problem
 _A_LOOP = "#pragma unroll 2\n        for (int k8 = 0; k8 < kw; k8 += 8) {"
 _A_END = "        const int c0 = t * kWCols + 4 * cq;"
 _B_LOOP = "#pragma unroll\n        for (int c4 = 0; c4 < kWCols / 4; ++c4) {"
-_B_END = "    float* out = dst + (size_t)blockIdx.y"
+_B_END = "    float* out = dst + (z * gridDim.y + blockIdx.y)"
 
 
 def _wrap_twice(text: str, start: str, end: str, closing: str = "") -> str:
@@ -129,7 +129,7 @@ def main(argv=None):
 
     def call(fn, nsplit):
         err = fn(W.data_ptr(), H.data_ptr(), words.data_ptr(), None, T.data_ptr(),
-                 part.data_ptr(), k, Mp, Np, 256, Np, nsplit, 1e-8, dev.index or 0, stream)
+                 part.data_ptr(), k, Mp, Np, 256, Np, nsplit, 1, 1e-8, dev.index or 0, stream)
         if err:
             raise RuntimeError(f"wpass_tune: CUDA error {err}")
 

@@ -9,6 +9,10 @@ or a dict with the same names, and returns a fitted
 ``PackedMatrix`` into this package's.  The bit layout is shared; the pad
 geometry is not (the JAX package pads the columns to a multiple of 128 and
 may pick another stripe), so the words are cropped or repacked.
+
+:func:`restart_inits_from_reference` turns the JAX package's batched random
+inits into the factors this package's solver cores start from, so that both
+packages run every restart lane from the same numbers.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import torch
 from ..models.estimator import NBMF
 from ..ops import cuda_sweep as cs
 from ..ops.packed import PackedMatrix, pack_matrix_chunked
+from ..solver import driver
 
-__all__ = ["from_reference", "packed_from_reference"]
+__all__ = ["from_reference", "packed_from_reference", "restart_inits_from_reference"]
 
 # Constructor arguments that carry over from a fitted JAX estimator.
 _HYPERPARAMETERS = (
@@ -119,3 +124,27 @@ def packed_from_reference(words, shape, block_m: int, device="cuda") -> PackedMa
         return dense[a - first * block_m: b - first * block_m, :n]
 
     return pack_matrix_chunked(row_chunk, m, n, validate=False, device=device)
+
+
+def restart_inits_from_reference(W0_ext, H0, dtype=None, device="cuda"):
+    """The batched inits of this package's solver cores on ``device`` from
+    the JAX package's: ``W0_ext (n_init, m, k)`` and ``H0 (n_init, k, n)`` as
+    numpy arrays, the way its ``_random_uniform_inits`` returns them
+    (``np.asarray`` of each).
+
+    Returns ``(W0, H0)`` as ``solve`` hands them to
+    :func:`~nbmf_mm_tpu_torch.solver.driver._solve_core`: ``W0 (n_init, k, m)``
+    in the internal layout, each lane with unit column sums, and
+    ``H0 (n_init, k, n)``, contiguous, in ``dtype`` (float32 by default).
+    The fused core takes them zero-padded to the planned geometry.
+    """
+    dtype = driver._resolve_dtype(dtype)
+    device = cs.resolve_device(device)
+    W0_ext = torch.tensor(np.asarray(W0_ext), dtype=dtype)
+    H0 = torch.tensor(np.asarray(H0), dtype=dtype)
+    if W0_ext.dim() != 3 or H0.dim() != 3 or W0_ext.shape[0] != H0.shape[0] \
+            or W0_ext.shape[2] != H0.shape[1]:
+        raise ValueError(f"inits must be (n_init, m, k) and (n_init, k, n), got "
+                         f"{tuple(W0_ext.shape)} and {tuple(H0.shape)}")
+    W0 = torch.stack([driver._internal_simplex_factor(w, device) for w in W0_ext])
+    return W0, H0.to(device).contiguous()

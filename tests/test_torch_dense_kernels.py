@@ -184,3 +184,119 @@ def test_wrappers_reject_other_devices():
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+# ----------------------------------------------- a leading lane axis (restarts)
+# Batched factors W (R, k, Mp), H (R, k, Np) over shared data: on CPU tensors
+# the wrappers run their plain versions lane by lane, so lane r must equal the
+# unbatched call bitwise; against the JAX kernels under jax.vmap (interpret
+# mode, float64) the bar is the unbatched tests' 1e-12 of max |ref| (a lane
+# of a batch runs the same formulas), stated here as 1e-10.
+TOL_VMAP = 1e-10
+LANES = [1, 3]
+
+
+def _lane_factors(c, R, dtype, seed=11):
+    """``R`` pairs of factors at the padded geometry of case ``c``."""
+    rng = np.random.default_rng(seed)
+    K_, Mp = c["W"].shape
+    Np = c["H"].shape[1]
+    W = np.zeros((R, K_, Mp), dtype)
+    W[:, :, :c["m"]] = rng.uniform(0.1, 0.9, (R, K_, c["m"]))
+    W[:, :, :c["m"]] /= W[:, :, :c["m"]].sum(axis=1, keepdims=True)
+    H = np.zeros((R, K_, Np), dtype)
+    H[:, :, :c["n"]] = rng.uniform(0.1, 0.9, (R, K_, c["n"]))
+    return W, H
+
+
+def _dense_calls(c, bm):
+    m, n = c["m"], c["n"]
+    Ym, Yc, Ym2 = _t(c["Ym"]), _t(c["Yc"]), _t(c["Ym2"])
+    return {
+        "hloss_terms": lambda W, H: ds.hloss_terms(W, H, Ym, Yc, eps=EPS, m_real=m, n_real=n,
+                                                   bm=bm),
+        "w_terms": lambda W, H: ds.w_terms(W, H, Ym, Ym2, eps=EPS, n_real=n, bm=bm),
+        "loglik_sum": lambda W, H: ds.loglik_sum(W, H, Ym, Yc, eps=EPS, m_real=m, n_real=n,
+                                                 bm=bm),
+    }
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("R", LANES + [6])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["hloss_terms", "w_terms", "loglik_sum"])
+def test_batched_lane_equals_unbatched_bitwise(name, mode, dtype, R):
+    c = _operands(240, 250, mode, dtype, seed=5)
+    W, H = map(torch.tensor, _lane_factors(c, R, dtype))
+    call = _dense_calls(c, BLOCK)[name]
+    batched = _tuple(call(W, H))
+    for out in batched:
+        assert out.shape[0] == R and out.dtype == W.dtype
+    for r in range(R):
+        for got, want in zip(batched, _tuple(call(W[r], H[r]))):
+            assert torch.equal(got[r], want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_lane_equals_unbatched_at_a_shape_the_jax_planner_rejects(mode):
+    """m = 300 pads to Mp = 512 with bm = 256 here; the JAX ``select_stripe``
+    rejects it, so only the port's own tie is held."""
+    m, n = 300, 70
+    rng = np.random.default_rng(2)
+    bm, Mp, Np = cs.plan_packing(m, n)
+    Y, mask = rng.random((m, n)), (rng.random((m, n)) < 0.75) * 1.0
+    pad = lambda A: np.pad(A, ((0, Mp - m), (0, Np - n)))
+    c = dict(Ym=pad(Y if mode == "none" else Y * mask), m=m, n=n,
+             W=np.zeros((K, Mp)), H=np.zeros((K, Np)))
+    c["Ym2"] = None if mode == "none" else pad((1 - Y) * mask)
+    c["Yc"] = c["Ym2"] if mode == "corrected" else None
+    W, H = map(torch.tensor, _lane_factors(c, 3, np.float64))
+    for call in _dense_calls(c, bm).values():
+        batched = _tuple(call(W, H))
+        for r in range(3):
+            for got, want in zip(batched, _tuple(call(W[r], H[r]))):
+                assert torch.equal(got[r], want)
+
+
+@pytest.mark.parametrize("R", LANES)
+@pytest.mark.parametrize("stripe", [False, True], ids=["tiled", "stripe"])
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_dense_passes_match_pallas_under_vmap(mode, stripe, R):
+    import jax
+
+    m, n = 240, 250
+    c = _operands(m, n, mode, np.float64, seed=6)
+    Wb, Hb = _lane_factors(c, R, np.float64)
+    kw = dict(block_m=BLOCK, block_n=BLOCK, interpret=True)
+    Ym, Yc, Ym2 = _j(c["Ym"]), _j(c["Yc"]), _j(c["Ym2"])
+    num_j, den_j, ll_j = jax.vmap(lambda W, H: ps.hloss_terms(
+        W, H, Ym, Yc, eps=EPS, m_real=m, n_real=n, stripe=stripe, **kw))(_j(Wb), _j(Hb))
+    T_j = jax.vmap(lambda W, H: ps.w_terms(
+        W, H, Ym, Ym2, n_real=n, eps=EPS, stripe=stripe, **kw))(_j(Wb), _j(Hb))
+    ll2_j = jax.vmap(lambda W, H: ps.loglik_sum(
+        W, H, Ym, Yc, m_real=m, n_real=n, eps=EPS, **kw))(_j(Wb), _j(Hb))
+    calls = _dense_calls(c, BLOCK)
+    num_t, den_t, ll_t = calls["hloss_terms"](_t(Wb), _t(Hb))
+    assert num_t.shape == (R, K, 256) and ll_t.shape == (R,)
+    bias = c["pad_entries"] * np.log1p(EPS) if stripe and mode != "corrected" else 0.0
+    assert _rel(num_t, num_j) <= TOL_VMAP and _rel(den_t, den_j) <= TOL_VMAP
+    assert _rel(ll_t.numpy() + bias, ll_j) <= TOL_VMAP
+    assert _rel(calls["w_terms"](_t(Wb), _t(Hb)), T_j) <= TOL_VMAP
+    assert _rel(calls["loglik_sum"](_t(Wb), _t(Hb)), ll2_j) <= TOL_VMAP
+
+
+def test_batched_wrappers_reject_mismatched_lanes():
+    c = _operands(240, 250, "none", np.float64)
+    W, H = map(torch.tensor, _lane_factors(c, 3, np.float64))
+    calls = _dense_calls(c, BLOCK)
+    for call in calls.values():
+        with pytest.raises(ValueError, match="one R"):
+            call(W, H[:2])
+        with pytest.raises(ValueError, match="one R"):
+            call(W, H[0])
+    with pytest.raises(ValueError, match="one R"):
+        ds.h_terms(W, H[:2], _t(c["Ym"]), eps=EPS, bm=BLOCK)

@@ -1,9 +1,12 @@
-"""Four contracts of the port that differed from the JAX package's: the
+"""Contracts of the port that differed from the JAX package's: the
 estimator's constructor parameters, ``SolverResult``'s fields, ranks above
-the kernels' cap, and the process-wide TF32 switches."""
+the kernels' cap, the process-wide TF32 switches, the errors of the restart
+options, and what the port's sources import."""
 
+import ast
 import dataclasses
 import inspect
+import pathlib
 
 import numpy as np
 import pytest
@@ -223,3 +226,64 @@ def test_guard_is_reentrant(tf32):
             assert _flags() == (False, False)
         assert _flags() == (False, False)
     assert _flags() == tf32
+
+
+# ------------------------------------- P5: the restart options' own errors
+def test_n_init_with_custom_init_raises_the_reference_error():
+    """``n_init > 1`` with a custom init is the JAX package's ValueError, in
+    both orientations, whichever factor is given."""
+    Y = _binary()
+    kw = dict(max_iter=3, n_init=2, dtype="float64", device="cpu")
+    msg = "n_init > 1 is incompatible with explicit W_init/H_init"
+    with pytest.raises(ValueError, match=msg):
+        port.solve(Y, 2, W_init=np.full((24, 2), 0.5), **kw)
+    with pytest.raises(ValueError, match=msg):
+        port.solve(Y, 2, H_init=np.full((2, 16), 0.5), **kw)
+    with pytest.raises(ValueError, match=msg):
+        port.solve(Y, 2, W_init=np.full((24, 2), 0.5), H_init=np.full((2, 16), 0.5),
+                   orientation="dir-beta", **kw)
+    with pytest.raises(ValueError, match=msg):
+        jref.solve(Y, 2, W_init=np.full((24, 2), 0.5), max_iter=3, n_init=2)
+
+
+def test_return_all_with_one_init_raises_the_reference_error():
+    msg = "return_all requires n_init > 1"
+    with pytest.raises(ValueError, match=msg):
+        port.solve(_binary(), 2, max_iter=3, return_all=True, dtype="float64", device="cpu")
+    with pytest.raises(ValueError, match=msg):
+        jref.solve(_binary(), 2, max_iter=3, return_all=True)
+
+
+@pytest.mark.parametrize("n_init", [0, -1])
+def test_n_init_below_one_raises(n_init):
+    with pytest.raises(ValueError, match="n_init must be >= 1"):
+        port.solve(_binary(), 2, max_iter=3, n_init=n_init, device="cpu")
+
+
+# --------------------------------------------- P6: what the sources import
+def _port_sources():
+    root = pathlib.Path(port.__file__).resolve().parent
+    return sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    """Top-level names of every absolute import in a source, wherever in the
+    file it stands (inside functions too)."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_sources_cover_the_parallel_package():
+    names = {p.name for p in _port_sources() if p.parent.name == "parallel"}
+    assert {"__init__.py", "restarts.py", "grid.py"} <= names
+    assert any(p.name == "chip_smoke.py" for p in _port_sources())
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_no_port_source_imports_jax_or_the_jax_package(path):
+    assert not {"jax", "jaxlib", "nbmf_mm_tpu", "nbmf_mm_compat"} & _imported_roots(path)

@@ -411,3 +411,89 @@ def test_hpass_tune_variants_edit_only_the_h_pass():
         assert text.count("{") == text.count("}"), name
         assert w_pass in text, name
         assert name == "production" or text != header
+
+
+# ------------------------------------------------- a leading lane axis on K1
+# Batched factors W (R, k, Mp), H (R, k, Np) over shared words.  Lane r of the
+# wrapper on CPU tensors equals the unbatched call bitwise (the plain version
+# runs lane by lane); against the JAX K1 under jax.vmap in interpret mode
+# (float64, the pad-bias constant added back) the bar is 1e-10 of max |JAX|.
+TOL_VMAP = 1e-10
+
+
+def _lane_factors(k, m, n, Mp, Np, R, seed, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    pairs = [_factors(rng, k, m, n, Mp, Np) for _ in range(R)]
+    return (np.stack([w for w, _ in pairs]).astype(dtype),
+            np.stack([h for _, h in pairs]).astype(dtype))
+
+
+@pytest.mark.parametrize("R", [1, 3, 6])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m, n", [(500, 250), (300, 70), (40, 30)],
+                         ids=["two-stripes", "m300-jax-rejects", "one-stripe"])
+def test_batched_k1_lane_equals_unbatched_bitwise(m, n, mode, dtype, R):
+    bm, Mp, Np = cs.plan_packing(m, n)
+    rng = np.random.default_rng(m + n)
+    Y = (rng.random((m, n)) < 0.35).astype(np.float64)
+    mask = rng.random((m, n)) < 0.75
+    pad = lambda A: np.pad(A, ((0, Mp - m), (0, Np - n)))
+    words = _t(cs.pack_bits_host(pad(Y if mode == "none" else Y * mask), bm))
+    words2 = _t(cs.pack_bits_host(pad((1 - Y) * mask), bm)) if mode == "corrected" else None
+    W, H = map(torch.tensor, _lane_factors(4, m, n, Mp, Np, R, 7, dtype))
+    kw = dict(eps=EPS, m_real=m, n_real=n, bm=bm)
+    num, den, ll = cs.hloss_terms_packed(W, H, words, words2, **kw)
+    assert num.shape == den.shape == (R, 4, Np) and ll.shape == (R,) and ll.dtype == W.dtype
+    for r in range(R):
+        for got, want in zip((num, den, ll), cs.hloss_terms_packed(W[r], H[r], words, words2,
+                                                                   **kw)):
+            assert torch.equal(got[r], want)
+
+
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("mode", MODES)
+def test_batched_k1_matches_pallas_under_vmap(mode, R):
+    c = _packed_case(mode)
+    m, n, k, bm = c["m"], c["n"], c["k"], c["bm"]
+    Mp, Np = c["Ym"].shape
+    Wb, Hb = _lane_factors(k, m, n, Mp, Np, R, 8)
+    words = cs.pack_bits_host(c["Ym"], bm)
+    words2 = None if c["Yc"] is None else cs.pack_bits_host(c["Yc"], bm)
+    num_j, den_j, ll_j = jax.vmap(lambda W, H: ps.hloss_terms_packed(
+        W, H, _j(words), _j(words2), eps=EPS, block_m=bm, interpret=True))(_j(Wb), _j(Hb))
+    num, den, ll = cs.hloss_terms_packed(_t(Wb), _t(Hb), _t(words), _t(words2), eps=EPS,
+                                         m_real=m, n_real=n, bm=bm)
+    bias = 0.0 if mode == "corrected" else (Mp * Np - m * n) * np.log1p(EPS)
+    assert _rel(num, num_j) <= TOL_VMAP and _rel(den, den_j) <= TOL_VMAP
+    assert _rel(ll.numpy() + bias, ll_j) <= TOL_VMAP
+
+
+def test_per_lane_checks_the_lane_axes():
+    W, H = torch.zeros((3, 2, 32)), torch.zeros((3, 2, 8))
+    words = torch.zeros((1, 8), dtype=torch.int32)
+    kw = dict(eps=EPS, m_real=32, n_real=8, bm=32)
+    with pytest.raises(ValueError, match="one R"):
+        cs.hloss_terms_packed(W, H[:2], words, **kw)
+    with pytest.raises(ValueError, match="one R"):
+        cs.hloss_terms_packed(W, H[0], words, **kw)
+    with pytest.raises(ValueError, match="lanes"):
+        cs.lane_count("k1", torch.zeros((0, 2, 32)), torch.zeros((0, 2, 8)))
+    assert cs.lane_count("k1", W[0], H[0]) is None and cs.lane_count("k1", W, H) == 3
+
+
+def test_cuda_checks_learn_the_lane_axis():
+    """``_check_cuda_operands`` on meta tensors standing in for the card's:
+    shapes are read off the last two axes, and a lane axis passes only where
+    the caller batches."""
+    dev = "meta"
+    W, H = torch.zeros((3, 2, 32), device=dev), torch.zeros((3, 2, 8), device=dev)
+    words = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cs._check_cuda_operands("k1", W, H, words, None, 32, batched=True)
+
+
+def test_launch_rejects_a_lane_stride_off_16_bytes():
+    with pytest.raises(ValueError, match="lane stride"):
+        cs._check_aligned("k1", (2 * 32, 2 * 7))
+    cs._check_aligned("k1", (2 * 32, 2 * 8))

@@ -45,7 +45,9 @@ def test_import_leaves_jax_out():
         "nbmf_mm_tpu_torch.tools.bench_packed2, nbmf_mm_tpu_torch.tools.bench_packed3, "
         "nbmf_mm_tpu_torch.tools.bench_diag, nbmf_mm_tpu_torch.tools.bench_stream, "
         "nbmf_mm_tpu_torch.tools.bench_vpu, nbmf_mm_tpu_torch.tools.sass_diff, nbmf_mm_tpu_torch.tools.wpass_tune, "
-        "nbmf_mm_tpu_torch.tools.hpass_tune; "
+        "nbmf_mm_tpu_torch.tools.hpass_tune, nbmf_mm_tpu_torch.tools.ab_time, "
+        "nbmf_mm_tpu_torch.parallel, "
+        "nbmf_mm_tpu_torch.parallel.restarts, nbmf_mm_tpu_torch.parallel.grid; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'nbmf_mm_tpu' or m.startswith('nbmf_mm_tpu.')]; "
         "assert not bad, bad; print('ok')" % REPO
@@ -60,7 +62,7 @@ def test_import_leaves_jax_out():
 def test_public_surface():
     for name in ("NBMF", "NBMFMM", "solve", "nbmf_mm_solver", "SolverResult", "FoldInServer",
                  "fold_in_fused", "PackedMatrix", "pack_matrix", "pack_matrix_chunked",
-                 "pack_matrix_sparse", "__version__"):
+                 "pack_matrix_sparse", "grid_solve", "__version__"):
         assert hasattr(nbt, name)
         assert name in nbt.__all__
     assert nbt.NBMF is nbt.NBMFMM
@@ -122,15 +124,13 @@ def test_resolve_backend_rejects(backend, dtype, device, binary):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(n_init=2),
-        dict(return_all=True),
         dict(mesh=object()),
         dict(dtype="bfloat16"),
         dict(precision="default"),
         dict(precision="high"),
         dict(device_results=True),
     ],
-    ids=["n_init", "return_all", "mesh", "bfloat16", "precision-default",
+    ids=["mesh", "bfloat16", "precision-default",
          "precision-high", "device_results"],
 )
 def test_options_left_out_raise(kwargs):

@@ -308,3 +308,56 @@ def test_wpass_tune_variants_edit_the_current_source():
     for name, text in texts.items():
         assert text.count("{") == text.count("}"), name
         assert name == "production" or text != header
+
+
+# ------------------------------------------------- a leading lane axis on K2
+# Batched factors over shared words: lane r of the wrapper on CPU tensors
+# equals the unbatched call bitwise; against the JAX K2 under jax.vmap in
+# interpret mode (float64) the bar is 1e-10 of max |JAX|.
+TOL_VMAP = 1e-10
+
+
+def _lane_factors(k, m, n, Mp, Np, R, seed, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    pairs = [_factors(rng, k, m, n, Mp, Np) for _ in range(R)]
+    return (np.stack([w for w, _ in pairs]).astype(dtype),
+            np.stack([h for _, h in pairs]).astype(dtype))
+
+
+@pytest.mark.parametrize("R", [1, 3, 6])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["none", "parity", "corrected"])
+@pytest.mark.parametrize("m, n", [(500, 250), (300, 70), (40, 30)],
+                         ids=["two-stripes", "m300-jax-rejects", "one-stripe"])
+def test_batched_k2_lane_equals_unbatched_bitwise(m, n, mode, dtype, R):
+    bm, Mp, Np = cs.plan_packing(m, n)
+    rng = np.random.default_rng(m + n)
+    Y = (rng.random((m, n)) < 0.35).astype(np.float64)
+    mask = rng.random((m, n)) < 0.75
+    pad = lambda A: np.pad(A, ((0, Mp - m), (0, Np - n)))
+    words = _t(cs.pack_bits_host(pad(Y if mode == "none" else Y * mask), bm))
+    words2 = None if mode == "none" else _t(cs.pack_bits_host(pad((1 - Y) * mask), bm))
+    W, H = map(torch.tensor, _lane_factors(4, m, n, Mp, Np, R, 9, dtype))
+    T = cs.w_terms_packed(W, H, words, words2, eps=EPS, n_real=n, bm=bm)
+    assert T.shape == (R, 4, Mp) and T.dtype == W.dtype
+    for r in range(R):
+        assert torch.equal(T[r], cs.w_terms_packed(W[r], H[r], words, words2, eps=EPS,
+                                                   n_real=n, bm=bm))
+
+
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("mode", ["none", "parity", "corrected"])
+def test_batched_k2_matches_pallas_under_vmap(mode, R):
+    c = _packed_case(mode)
+    k, Mp = c["W"].shape
+    Np = c["H"].shape[1]
+    Wb, Hb = _lane_factors(k, 240, c["n"], Mp, Np, R, 10)
+    words, words2 = jnp.asarray(c["words"]), (None if c["words2"] is None
+                                              else jnp.asarray(c["words2"]))
+    T_j = jax.vmap(lambda W, H: ps.w_terms_packed(
+        W, H, words, words2, n_real=c["n"], eps=EPS, block_m=c["bm"], interpret=True))(
+            jnp.asarray(Wb), jnp.asarray(Hb))
+    T = cs.w_terms_packed(_t(Wb), _t(Hb), _t(c["words"]), _t(c["words2"]), eps=EPS,
+                          n_real=c["n"], bm=c["bm"])
+    assert T.shape == (R, k, Mp)
+    assert _rel(T, T_j) <= TOL_VMAP
