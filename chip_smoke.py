@@ -60,6 +60,27 @@ standalone solves) and a 4-cell zip grid at the headline; and the times of
 the batched kernels and loops at ``R = 16`` beside their bounds, with the
 peak device memory of the 16-restart fit.
 
+Phase 10 is the precision tiers and the bf16-data mode
+(``nbmf_mm_tpu_torch/ops/tiers.py``): every operand form of the production
+kernels (``_bf16r`` for ``precision="default"``, ``_tf32r`` for ``"high"``,
+``_bf16d`` for ``dtype="bfloat16"``) against its plain version at the
+headline, lastfm, one word row and the split edges ``W_EDGES``/``H_EDGES`` in
+all three mask modes, with the bitwise ties (dense == packed per tier, the
+bf16-data H pass and ``loglik_sum`` == the DEFAULT tier's, the bf16-data W
+pass == DEFAULT's where H is bf16-representable, lane == unbatched at R = 4);
+then, each with the counters zeroed before and read after,
+``NBMF(dtype="bfloat16").fit`` on the mean matrix (bf16-data launches only,
+no ``pack_bits``, peak device memory beside a float32 fit's) and on the binary
+matrix (dense, never packed), ``solve(precision="default"/"high")`` packed and
+dense (bitwise equal; losses descending within 2e-3; final loss beside the
+float32 solve's), ``FoldInServer(precision="default")`` and
+``FoldInServer(dtype="bfloat16")`` against the plain fold-in of the same
+tier, the 6 x 6 lastfm grid in bf16 and ``NBMF(n_init=4,
+precision="default")``; ``bench_kernels`` in each form (where ``h_terms``
+runs); and each form's ms beside its float32 instance and its bound, the
+fused loops per tier and on bf16 data, and the tier's serving requests beside
+float32's.
+
 Each phase prints one line or more; any failure raises and the script exits
 non-zero.  The last line is a JSON object with ``"ok": true`` and the
 device; the line before it lists the kernels.
@@ -184,6 +205,35 @@ PAPER_LASTFM_K = 8
 LANE_EDGES = (("lastfm", None, 8), ("ragged k=17", (1_000, 1_234), 17),
               ("ragged k=200", (1_000, 1_234), 200), ("one-word-row", (32, 40), 4))
 LANE_EDGE_COUNTS = (1, 3)
+# Phase 10: the operand forms of the production kernels (ops/tiers.py): the
+# precision tiers "default" (bf16r) and "high" (tf32r) and the bf16-data mode
+# (bf16d), each kernel's counter and entry point named with the form's suffix.
+TIER_FORMS = ("bf16r", "tf32r", "bf16d")
+FORM_PRECISION = {"bf16r": "default", "tf32r": "high", "bf16d": "default"}
+TIER_BASES = ("hloss_terms_packed", "w_terms_packed", "hloss_terms", "w_terms", "loglik_sum",
+              "h_terms")
+
+
+def tier_source(base: str, form: str) -> str:
+    if base.endswith("_packed"):
+        return "sweep_tiers_packed.cu"
+    return "sweep_bf16.cu" if form == "bf16d" else f"sweep_tiers_{form}.cu"
+
+
+# name: (source, file:line of the TPU kernel): the form replaces the same
+# Pallas kernel as its float32 instance, run under that precision or on bf16
+# data.  The packed kernels have no bf16-data form (words replace the data).
+TIER_KERNELS = {f"{base}_{form}": (tier_source(base, form), KERNELS[base][1])
+                for base in TIER_BASES for form in TIER_FORMS
+                if not (base.endswith("_packed") and form == "bf16d")}
+# A rounded operand rounds the other way where the kernel's fp32 sums (WH,
+# the ratios) differ from the plain version's in the last bit: Num/Den/T
+# within 1e-4 of max |plain|, ll within 1e-5 of sum |x|.
+TOL_TIER_TERMS = 1e-4
+TOL_TIER_LL = 1e-5
+# The loss of a fit under a reduced tier may rise by this much from one sweep
+# to the next (the products carry bf16- or TF32-grade rounding).
+TIER_DESCENT = 2e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -733,20 +783,23 @@ def time_kernels(X, P, k, card, cs, ds):
     return times
 
 
-def loop_ms_per_sweep(name, Y, k, packed, card, cs, lanes=None, runs=(5, 25)):
+def loop_ms_per_sweep(name, Y, k, packed, card, cs, lanes=None, runs=(5, 25), precision=None,
+                      bf16=False):
     """ms/sweep of ``_solve_core_fused`` on operands already staged on the
     card: CUDA events around two runs of ``runs`` sweeps (tol=0), slope.
-    With ``lanes`` the batched loop over that many restarts."""
+    With ``lanes`` the batched loop over that many restarts, with
+    ``precision`` the loop of that tier, with ``bf16`` over bf16 data."""
     from nbmf_mm_tpu_torch.solver.driver import _solve_core_fused
 
     m, n = Y.shape
     bm, Mp, Np = cs.plan_packing(m, n)
     Ym = padded(torch.as_tensor(Y, device=DEV), Mp, Np)
-    Y1 = cs.pack_bits(Ym, bm) if packed else Ym
+    Y1 = cs.pack_bits(Ym, bm) if packed else Ym.to(torch.bfloat16) if bf16 else Ym
     W0, H0 = factors(m, n, k, Mp, Np, 3) if lanes is None else lane_factors(m, n, k, Mp, Np,
                                                                            lanes, 3)
     kw = dict(packed=packed, alpha=1.2, beta=1.2, tol=0.0, eps=EPS, n_obs=float(m * n),
-              m_real=m, n_real=n, bm=bm, projection="normalize", verbose=0)
+              m_real=m, n_real=n, bm=bm, projection="normalize", verbose=0,
+              mxu_precision=precision)
     run = lambda sweeps: _solve_core_fused(Y1, None, None, W0, H0, max_iter=sweeps, **kw)
     run(2)
     ms = {}
@@ -762,7 +815,8 @@ def loop_ms_per_sweep(name, Y, k, packed, card, cs, lanes=None, runs=(5, 25)):
         ms[sweeps] = start.elapsed_time(end)
     short, long = runs
     per_sweep = (ms[long] - ms[short]) / (long - short)
-    batch = "" if lanes is None else f", {lanes} lanes"
+    batch = ("" if lanes is None else f", {lanes} lanes") + (
+        f", precision {precision}" if precision else "") + (", bf16 data" if bf16 else "")
     print(f"timing fused loop ({name}, packed={packed}{batch}) at {m}x{n} k={k}: "
           f"{per_sweep:.3f} ms/sweep ({1e3 / per_sweep:.2f} sweeps/s); {long} sweeps "
           f"{ms[long]:.1f} ms [{card}]", flush=True)
@@ -778,12 +832,7 @@ def serving_ms(server, plain, requests, weighted, card):
     out = {}
     for label, srv in (("kernels", server), ("plain", plain)):
         for kind, X, mask in (("binary", X_bin, None), ("weighted-mask", X_w, mask_w)):
-            srv.transform(X, mask=mask)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                srv.transform(X, mask=mask)
-            out[(label, kind)] = (time.perf_counter() - t0) / 3 * 1e3
+            out[(label, kind)] = request_ms(srv, X, mask)
     for kind in ("binary", "weighted-mask"):
         print(f"timing serving {kind} {top}-row request x {server.n_features} features, "
               f"k={server.k}, {server.n_iter} iterations: kernels {out[('kernels', kind)]:.1f} "
@@ -1599,6 +1648,486 @@ def restarts_and_grids_phase(NBMF, solve, grid_solve, X, P, lastfm, lastfm_soft,
     return launches, lanes
 
 
+def tier_calls(o, form, cs, ds):
+    """The production wrappers under ``form`` on the operands ``o`` (its
+    dense operands cast to bf16 for the bf16-data form; K1 and K2 where ``o``
+    has words and the form packs), each as ``(call on (W, H), plain version
+    on (W, H))``, keyed by the form's counter name."""
+    prec, bm = FORM_PRECISION[form], o["bm"]
+    kh = dict(eps=EPS, m_real=o["m"], n_real=o["n"], precision=prec)
+    kw = dict(eps=EPS, n_real=o["n"], precision=prec)
+    cast = (lambda A: None if A is None else A.to(torch.bfloat16)) if form == "bf16d" else (
+        lambda A: A)
+    Ym, Yc, Ym2 = cast(o["Ym"]), cast(o["Yc"]), cast(o["Ym2"])
+    calls = {}
+    if "words" in o and form != "bf16d":
+        w, w2h, w2w = o["words"], o["words2_h"], o["words2_w"]
+        calls[f"hloss_terms_packed_{form}"] = (
+            lambda W, H: cs.hloss_terms_packed(W, H, w, w2h, bm=bm, **kh),
+            lambda W, H: cs.hloss_terms_packed_plain(W, H, w, w2h, bm=bm, **kh))
+        calls[f"w_terms_packed_{form}"] = (
+            lambda W, H: cs.w_terms_packed(W, H, w, w2w, bm=bm, **kw),
+            lambda W, H: cs.w_terms_packed_plain(W, H, w, w2w, bm=bm, **kw))
+    calls[f"hloss_terms_{form}"] = (lambda W, H: ds.hloss_terms(W, H, Ym, Yc, bm=bm, **kh),
+                                    lambda W, H: ds.hloss_terms_plain(W, H, Ym, Yc, **kh))
+    calls[f"w_terms_{form}"] = (lambda W, H: ds.w_terms(W, H, Ym, Ym2, bm=bm, **kw),
+                                lambda W, H: ds.w_terms_plain(W, H, Ym, Ym2, **kw))
+    calls[f"loglik_sum_{form}"] = (lambda W, H: ds.loglik_sum(W, H, Ym, Yc, bm=bm, **kh),
+                                   lambda W, H: ds.loglik_sum_plain(W, H, Ym, Yc, **kh))
+    calls[f"h_terms_{form}"] = (
+        lambda W, H: ds.h_terms(W, H, Ym, Yc, eps=EPS, bm=bm, precision=prec),
+        lambda W, H: ds.h_terms_plain(W, H, Ym, Yc, eps=EPS, precision=prec))
+    return calls
+
+
+def check_tier_kernels(label, Y, soft, k, card, cs, ds, errors):
+    """Every operand form of the production kernels at one shape, in all
+    three mask modes, on the binary ``Y`` and on the [0,1]-valued ``soft``
+    under a weighted mask: against the plain versions, launched twice for
+    bitwise repeatability; on binary data dense == packed in each tier, the
+    bf16-data H pass and loglik_sum == the DEFAULT tier's over f32 data, and
+    the bf16-data W pass == the DEFAULT tier's where H is bf16-representable
+    (the two rules for 1 - h then agree), all bitwise."""
+    m, n = Y.shape
+    worst = {form: [0.0, 0.0] for form in TIER_FORMS}
+    repeat = same = True
+    for mode in MODES:
+        o = operands(Y, k, mode, 30, cs)
+        d = operands(soft, k, mode, 31, cs, weighted=True)
+        for form in TIER_FORMS:
+            for ops in (o, d):
+                for name, (call, plain) in tier_calls(ops, form, cs, ds).items():
+                    got, again = as_tuple(call(ops["W"], ops["H"])), as_tuple(call(ops["W"],
+                                                                                   ops["H"]))
+                    torch.cuda.synchronize()
+                    for g, w in zip(got, as_tuple(plain(ops["W"], ops["H"]))):
+                        if w.numel() == 1:
+                            worst[form][1] = max(worst[form][1], rel_ll(g, w))
+                        else:
+                            worst[form][0] = max(worst[form][0], rel(g, w))
+                        errors[name] = max(errors[name], abs_err(g, w))
+                    repeat &= all(map(torch.equal, got, again))
+            if form != "bf16d":
+                c = {name.removesuffix("_" + form): call(o["W"], o["H"])
+                     for name, (call, _) in tier_calls(o, form, cs, ds).items()}
+                same &= all(map(torch.equal, c["hloss_terms"], c["hloss_terms_packed"]))
+                same &= torch.equal(c["w_terms"], c["w_terms_packed"])
+                same &= torch.equal(c["loglik_sum"], c["hloss_terms_packed"][2])
+        r = tier_calls(o, "bf16r", cs, ds)
+        b = tier_calls(o, "bf16d", cs, ds)
+        for base in ("hloss_terms", "loglik_sum", "h_terms"):
+            same &= all(map(torch.equal, as_tuple(b[f"{base}_bf16d"][0](o["W"], o["H"])),
+                            as_tuple(r[f"{base}_bf16r"][0](o["W"], o["H"]))))
+        Hb = o["H"].to(torch.bfloat16).float()
+        same &= torch.equal(b["w_terms_bf16d"][0](o["W"], Hb), r["w_terms_bf16r"][0](o["W"], Hb))
+    bars = ", ".join(f"{form} {worst[form][0]:.3e} / ll {worst[form][1]:.3e}" for form in TIER_FORMS)
+    print(f"tiers {label} {m}x{n} k={k}: the forms' kernels (binary, weighted [0,1]) in "
+          f"{'/'.join(MODES)} against plain: max rel err {bars} (bounds {TOL_TIER_TERMS:g} of "
+          f"max|plain|, ll {TOL_TIER_LL:g}); bitwise repeat {repeat}; dense == packed per tier, "
+          f"bf16-data H/loglik_sum/h_terms == DEFAULT's, bf16-data W == DEFAULT's at "
+          f"bf16-representable H, bitwise {same} [{card}]", flush=True)
+    check(all(t <= TOL_TIER_TERMS and ll <= TOL_TIER_LL for t, ll in worst.values()),
+          f"tiers {label}: a form's kernel disagrees with plain {worst}")
+    check(repeat, f"tiers {label}: outputs differ between two launches")
+    check(same, f"tiers {label}: a bitwise equality of the forms failed")
+
+
+def check_tier_lanes(X, P, k, card, cs, ds, errors):
+    """Each form's five production kernels with ``LANES_CHECKED`` lanes at the
+    headline, in all three mask modes: every lane == the unbatched kernel
+    bitwise, the last lane against the plain version."""
+    m, n = X.shape
+    bm, Mp, Np = cs.plan_packing(m, n)
+    W, H = lane_factors(m, n, k, Mp, Np, LANES_CHECKED, 32)
+    same, worst, worst_ll = True, 0.0, 0.0
+    for mode in MODES:
+        o = operands(X, k, mode, 33, cs)
+        d = operands(P, k, mode, 34, cs, weighted=True)
+        for form in TIER_FORMS:
+            calls = {**tier_calls(o, form, cs, ds), **{
+                name: c for name, c in tier_calls(d, form, cs, ds).items() if "packed" not in name}}
+            for name, (call, plain) in calls.items():
+                if name.startswith("h_terms"):  # no lane axis
+                    continue
+                got = as_tuple(call(W, H))
+                for r in range(LANES_CHECKED):
+                    same &= all(torch.equal(g[r], u) for g, u in zip(got, as_tuple(call(W[r], H[r]))))
+                for g, w in zip(got, as_tuple(plain(W[-1], H[-1]))):
+                    if w.numel() == 1:
+                        worst_ll = max(worst_ll, rel_ll(g[-1], w))
+                    else:
+                        worst = max(worst, rel(g[-1], w))
+                    errors[name] = max(errors[name], abs_err(g[-1], w))
+    print(f"tiers: lanes at {m}x{n} k={k} R={LANES_CHECKED} in {'/'.join(MODES)}, forms "
+          f"{TIER_FORMS}: every lane == the unbatched kernel bitwise {same}; last lane against "
+          f"plain: max rel err {worst:.3e} (bound {TOL_TIER_TERMS:g}), ll {worst_ll:.3e} (bound "
+          f"{TOL_TIER_LL:g}) [{card}]", flush=True)
+    check(same, "tiers: a lane differs from the unbatched kernel")
+    check(worst <= TOL_TIER_TERMS and worst_ll <= TOL_TIER_LL, "tiers: a batched form disagrees")
+
+
+def descends(losses, rel_rise: float) -> bool:
+    """Finite losses, none above the one before by more than ``rel_rise`` of
+    its size (a loss may be negative under a prior with alpha or beta < 1)."""
+    losses = np.asarray(losses, dtype=np.float64)
+    return bool(np.isfinite(losses).all()
+                and np.all(np.diff(losses) <= rel_rise * np.abs(losses[:-1])))
+
+
+def tier_count_check(what, launches, expected):
+    """``expected`` {counter: launches}; every other counter must read 0."""
+    wrong = {name: n for name, n in launches.items() if n != expected.get(name, 0)}
+    check(not wrong, f"{what}: launches {wrong} against {expected}")
+
+
+class CountingPackBits:
+    """``cs.pack_bits`` wrapped to count its calls while the context is open."""
+
+    def __init__(self, cs):
+        self.cs, self.calls = cs, 0
+
+    def __enter__(self):
+        self.real = self.cs.pack_bits
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+
+        self.cs.pack_bits = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cs.pack_bits = self.real
+
+
+def bf16_fits(NBMF, X, P, model, card, cs, ds):
+    """``NBMF(dtype="bfloat16").fit`` on the mean matrix (the dense bf16-data
+    kernels and the loglik_sum fill, with the peak device memory beside a
+    float32 fit's) and on the binary matrix (dense bf16 too, never packed)."""
+    k = HEADLINE["k"]
+    total = {}
+    peaks = {}
+    for dtype, sweeps in (("float32", 5), ("bfloat16", FIT_SWEEPS)):
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(cs, ds)
+        with CountingPackBits(cs) as packs:
+            est, wall = timed(lambda: NBMF(n_components=k, max_iter=sweeps, tol=0.0,
+                                           random_state=0, dtype=dtype, device=DEV).fit(P))
+        peaks[dtype] = torch.cuda.max_memory_allocated() - held
+        if dtype == "float32":
+            continue
+        launches = read_counts(cs, ds)
+        add_counts(total, cs, ds)
+        losses = np.asarray(est.loss_curve_)
+        print(f"tiers: NBMF(dtype='bfloat16').fit on the mean matrix {P.shape} k={k}, {sweeps} "
+              f"sweeps at tol=0: {wall:.2f} s wall, loss {losses[0]:.9g} -> {losses[-1]:.9g} "
+              f"(float32 fit: {model.loss_:.9g}, rel diff "
+              f"{abs(losses[-1] - model.loss_) / abs(model.loss_):.3e}; max |W_ - W_ float32| "
+              f"{np.abs(est.W_ - model.W_).max():.3e}); extras "
+              f"{est.solver_result_.extras}; pack_bits calls {packs.calls}; peak device memory "
+              f"{peaks['bfloat16'] / 1e6:.1f} MB beside {peaks['float32'] / 1e6:.1f} MB for the "
+              f"float32 fit ({(peaks['float32'] - peaks['bfloat16']) / 1e6:.1f} MB less) "
+              f"[{card}]", flush=True)
+        check(est.solver_result_.extras == {"backend": "fused", "packed": False,
+                                            "precision": "default", "data_dtype": "bfloat16"},
+              f"bf16 dense fit took {est.solver_result_.extras}")
+        tier_count_check("bf16 dense fit", launches, {"hloss_terms_bf16d": sweeps,
+                                                      "w_terms_bf16d": sweeps,
+                                                      "loglik_sum_bf16d": 1})
+        check(packs.calls == 0, "the bf16 fit called pack_bits")
+        check(est.n_iter_ == sweeps and descends(losses, TIER_DESCENT), "bf16 fit: losses")
+        check(np.abs(est.W_.sum(axis=1) - 1).max() <= 1e-5
+              and bool(((est.components_ > 0) & (est.components_ < 1)).all()), "bf16 fit: factors")
+        check(peaks["bfloat16"] < peaks["float32"], "the bf16 fit peaks above the float32 fit")
+        check(not np.array_equal(est.W_, model.W_), "the bf16 fit computed the float32 fit")
+
+    zero_counts(cs, ds)
+    with CountingPackBits(cs) as packs:
+        est, wall = timed(lambda: NBMF(n_components=k, max_iter=FIT_SWEEPS, random_state=0,
+                                       dtype="bfloat16", device=DEV).fit(X))
+    launches = read_counts(cs, ds)
+    add_counts(total, cs, ds)
+    losses = np.asarray(est.loss_curve_)
+    print(f"tiers: NBMF(dtype='bfloat16').fit on the binary matrix {X.shape} k={k}: n_iter "
+          f"{est.n_iter_}, loss {losses[0]:.6f} -> {losses[-1]:.6f}, {wall:.2f} s wall; extras "
+          f"{est.solver_result_.extras}; pack_bits calls {packs.calls}; launches "
+          f"{ {n: c for n, c in launches.items() if c} } [{card}]", flush=True)
+    check(est.solver_result_.extras["packed"] is False and packs.calls == 0,
+          "the binary bf16 fit packed its data")
+    n = est.n_iter_
+    tier_count_check("bf16 binary fit", launches, {
+        "hloss_terms_bf16d": launches["hloss_terms_bf16d"], "w_terms_bf16d": n,
+        "loglik_sum_bf16d": launches["loglik_sum_bf16d"]})
+    check(launches["hloss_terms_bf16d"] >= n > 0 and descends(losses, TIER_DESCENT),
+          "bf16 binary fit: launches or losses")
+    return total, peaks
+
+
+def tier_solves(solve, X, card, cs, ds):
+    """``solve(X, 128, precision=...)`` in the two reduced tiers, packed and
+    dense, 100 sweeps at tol=0: the losses finite and descending within
+    ``TIER_DESCENT``, packed == dense bitwise, the final loss beside the
+    float32 solve's."""
+    k, sweeps = HEADLINE["k"], FIT_SWEEPS
+    kw = dict(max_iter=sweeps, tol=0.0, random_state=0, dtype="float32", device=DEV)
+    ref = solve(X, k, **kw)
+    total = {}
+    for precision, form in (("default", "bf16r"), ("high", "tf32r")):
+        runs = {}
+        for packed in (None, False):
+            zero_counts(cs, ds)
+            res, wall = timed(lambda: solve(X, k, precision=precision, packed=packed, **kw))
+            launches = read_counts(cs, ds)
+            add_counts(total, cs, ds)
+            runs[packed] = res
+            loss = res.losses[-1]
+            print(f"tiers: solve(headline, {k}, precision={precision!r}, packed={packed}), "
+                  f"{sweeps} sweeps: {wall:.2f} s wall, final loss {loss:.9g} beside float32's "
+                  f"{ref.losses[-1]:.9g} (rel diff {abs(loss - ref.losses[-1]) / ref.losses[-1]:.3e}; "
+                  f"max |W - W float32| {np.abs(res.W - ref.W).max():.3e}); "
+                  f"losses descend within {TIER_DESCENT:g} {descends(res.losses, TIER_DESCENT)}; "
+                  f"extras {res.extras} [{card}]", flush=True)
+            check(descends(res.losses, TIER_DESCENT) and res.n_iter == sweeps,
+                  f"precision {precision}: losses")
+            check(res.extras.get("precision") == precision, f"precision {precision}: extras")
+            check(not np.array_equal(res.W, ref.W), f"precision {precision}: the float32 solve")
+            if packed is None:
+                expected = {f"hloss_terms_packed_{form}": sweeps + 1,
+                            f"w_terms_packed_{form}": sweeps}
+            else:
+                expected = {f"hloss_terms_{form}": sweeps, f"w_terms_{form}": sweeps,
+                            f"loglik_sum_{form}": 1}
+            tier_count_check(f"solve precision={precision} packed={packed}", launches, expected)
+        a, b = runs[None], runs[False]
+        same = a.losses == b.losses and np.array_equal(a.W, b.W) and np.array_equal(a.H, b.H)
+        print(f"tiers: precision={precision!r} packed == dense bitwise {same} [{card}]", flush=True)
+        check(same, f"precision {precision}: packed and dense solves differ")
+    return total
+
+
+class PlainDenseWPass:
+    """``ds.w_terms`` replaced by its plain version while the context is
+    open: the fold-in of a server whose kernel route has no plain route of
+    the same numbers (the bf16-data W pass forms 1 - h from the bf16 h,
+    where the plain fold-in keeps the data float32)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __enter__(self):
+        self.real = self.ds.w_terms
+        self.ds.w_terms = lambda W, H, Ym, Ym2=None, *, eps, n_real, bm, precision=None: (
+            self.ds.w_terms_plain(W, H, Ym, Ym2, eps=eps, n_real=n_real, precision=precision))
+        return self
+
+    def __exit__(self, *exc):
+        self.ds.w_terms = self.real
+
+
+def tier_serving(FoldInServer, model, requests, weighted, card, cs, ds):
+    """``FoldInServer(model, precision="default")`` on the 8192-row binary
+    request (K2 in the DEFAULT tier) and the weighted-mask request (the
+    dense W pass in it), W against the plain fold-in of that tier; then
+    ``dtype="bfloat16"`` on the weighted-mask request (the bf16-data W
+    pass), W against the same server with the W pass's plain version."""
+    top = SERVE_BUCKETS[-1]
+    X_bin = next(X for X in requests if X.shape[0] == top)
+    X_w, mask_w = weighted
+    total = {}
+    for kw, runs, expected in (
+            (dict(precision="default"), ((X_bin, None), (X_w, mask_w)),
+             {"w_terms_packed_bf16r": 50, "w_terms_bf16r": 50}),
+            (dict(dtype="bfloat16"), ((X_w, mask_w),), {"w_terms_bf16d": 50})):
+        server = FoldInServer(model, buckets=SERVE_BUCKETS, device=DEV, **kw)
+        plain = FoldInServer(model, buckets=SERVE_BUCKETS, device=DEV, backend="plain", **kw)
+        worst = 0.0
+        zero_counts(cs, ds)
+        served = [server.transform(X, mask=mask) for X, mask in runs]
+        torch.cuda.synchronize()
+        launches = read_counts(cs, ds)
+        add_counts(total, cs, ds)
+        tier_count_check(f"FoldInServer {kw}", launches, expected)
+        for (W, sc), (X, mask) in zip(served, runs):
+            if "dtype" in kw:
+                with PlainDenseWPass(ds):
+                    W_plain, _ = server.transform(X, mask=mask)
+            else:
+                W_plain, _ = plain.transform(X, mask=mask)
+            check(np.isfinite(W).all() and np.isfinite(sc).all()
+                  and np.abs(W.sum(axis=1) - 1).max() <= 1e-5, f"FoldInServer {kw}: output")
+            worst = max(worst, float(np.abs(W - W_plain).max()))
+        against = ("the same server on the W pass's plain version" if "dtype" in kw
+                   else "the plain fold-in of the same tier")
+        print(f"tiers: FoldInServer(model, {kw}) on {len(runs)} {top}-row request(s): launches "
+              f"{ {n: c for n, c in launches.items() if c} }; W against {against}: max abs diff "
+              f"{worst:.3e} (bound {TOL_FOLD_IN:g}) [{card}]", flush=True)
+        check(worst <= TOL_FOLD_IN, f"FoldInServer {kw}: W disagrees with the plain fold-in")
+        f32 = FoldInServer(model, buckets=SERVE_BUCKETS, device=DEV)
+        for X, mask in runs:
+            kind = "binary" if mask is None else "weighted-mask"
+            ms = {label: request_ms(srv, X, mask) for label, srv in (("tier", server),
+                                                                      ("float32", f32))}
+            print(f"timing serving {kind} {top}-row request, FoldInServer({kw}): "
+                  f"{ms['tier']:.1f} ms/request beside {ms['float32']:.1f} for float32 "
+                  f"({100 * (ms['tier'] / ms['float32'] - 1):+.1f}%) [{card}]", flush=True)
+    return total
+
+
+def request_ms(server, X, mask, reps: int = 3) -> float:
+    """Host wall time of one request (ends in a host copy), mean of ``reps``
+    after a warm-up."""
+    server.transform(X, mask=mask)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        server.transform(X, mask=mask)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def tier_grid_and_restarts(NBMF, grid_solve, X, lastfm, mask, card, cs, ds):
+    """The 6 x 6 lastfm grid in the bf16-data mode (36 lanes on the bf16
+    kernels) and ``NBMF(n_init=4, precision="default")`` at the headline
+    (4 lanes on K1/K2 in the DEFAULT tier)."""
+    k, sweeps = PAPER_LASTFM_K, 200
+    total = {}
+    zero_counts(cs, ds)
+    g, wall = timed(lambda: grid_solve(lastfm, k, PAPER_GRID, PAPER_GRID, mask=mask,
+                                       max_iter=sweeps, dtype="bfloat16", device=DEV))
+    launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
+    add_counts(total, cs, ds)
+    cells = len(PAPER_GRID) ** 2
+    # Cells with beta < 1 push H to the clip, where bf16-rounded products let
+    # the loss wobble: the largest rise is printed, not held to a bar.
+    rises = max(float(np.max(np.diff(g["losses"][c, :g["n_iter"][c]].astype(np.float64))
+                             / np.abs(g["losses"][c, :g["n_iter"][c] - 1]))) for c in range(cells))
+    print(f"tiers: grid_solve(lastfm, {k}, 6 x 6, parity mask, dtype='bfloat16'): {wall:.2f} s "
+          f"wall, n_iter {int(g['n_iter'].min())} to {int(g['n_iter'].max())}, final losses "
+          f"{g['final_loss'].min():.6f} to {g['final_loss'].max():.6f}; largest relative rise of a "
+          f"cell's loss {rises:.2e}; launches { {n: c for n, c in launches.items() if c} }, lanes "
+          f"{ {n: c for n, c in lanes.items() if c} } [{card}]", flush=True)
+    check(all(np.isfinite(g[name]).all() for name in ("W", "H", "final_loss"))
+          and g["losses"].dtype == np.float32 and g["W"].shape[0] == cells, "bf16 grid")
+    check(lanes["hloss_terms_bf16d"] == cells * launches["hloss_terms_bf16d"] > 0
+          and lanes["w_terms_bf16d"] == cells * launches["w_terms_bf16d"] > 0
+          and sum(launches.values()) == launches["hloss_terms_bf16d"]
+          + launches["w_terms_bf16d"] + launches["loglik_sum_bf16d"], "bf16 grid: launches")
+
+    R, steps = 4, 20
+    zero_counts(cs, ds)
+    est, wall = timed(lambda: NBMF(n_components=HEADLINE["k"], n_init=R, max_iter=steps, tol=0.0,
+                                   random_state=0, precision="default", dtype="float32",
+                                   device=DEV).fit(X))
+    launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
+    add_counts(total, cs, ds)
+    finals = est.solver_result_.all_final_losses
+    print(f"tiers: NBMF(n_init={R}, precision='default').fit(headline), {steps} sweeps: "
+          f"{wall:.2f} s wall, final losses {finals.min():.6f} to {finals.max():.6f}, best "
+          f"{est.solver_result_.best_restart}; launches "
+          f"{ {n: c for n, c in launches.items() if c} }, lanes "
+          f"{ {n: c for n, c in lanes.items() if c} } [{card}]", flush=True)
+    tier_count_check("n_init=4 default", launches, {"hloss_terms_packed_bf16r": steps + 1,
+                                                    "w_terms_packed_bf16r": steps})
+    check(lanes["hloss_terms_packed_bf16r"] == R * (steps + 1)
+          and lanes["w_terms_packed_bf16r"] == R * steps and np.isfinite(finals).all()
+          and descends(est.loss_curve_, TIER_DESCENT), "n_init=4 default: lanes or losses")
+    return total
+
+
+def tier_measurement_path(card, cs, ds):
+    """``bench_kernels`` in each form (the measurement path, where h_terms
+    runs), with the counters set to 0 before and read after."""
+    zero_counts(cs, ds)
+    mod = importlib.import_module("nbmf_mm_tpu_torch.tools.bench_kernels")
+    for args in (["--precision", "default"], ["--precision", "high"], ["--dtype", "bfloat16"]):
+        print(f"tiers: python -m nbmf_mm_tpu_torch.tools.bench_kernels --reps 1 {' '.join(args)} "
+              f"[{card}]", flush=True)
+        mod.main(["--reps", "1", *args])
+    torch.cuda.synchronize()
+    return read_counts(cs, ds)
+
+
+def time_tier_kernels(X, P, k, times, card, cs, ds):
+    """ms/call of each form at the headline beside its float32 instance and
+    its bound (the float32 instance's operations; bf16 data halves the data
+    bytes): K1/K2 forms on the binary matrix's words, the dense forms on
+    ``P`` (unmasked)."""
+    o = operands(X, k, "unmasked", 2, cs)
+    d = operands(P, k, "unmasked", 2, cs, weighted=True)
+    m, n = o["m"], o["n"]
+    W, H = o["W"], o["H"]
+    mnk = m * n * k
+    factors_b, num_den_b, T_b = tensor_bytes(W, H), 2 * tensor_bytes(H), tensor_bytes(W)
+    out_b = {"hloss_terms": num_den_b + 4, "w_terms": T_b, "loglik_sum": 4, "h_terms": num_den_b}
+    products = {"hloss_terms": 6, "w_terms": 6, "loglik_sum": 2, "h_terms": 6}
+    f32 = {**{name: times[name]["ms"] for name in PATH_KERNELS},
+           "h_terms": cuda_ms(lambda: ds.h_terms(W, H, d["Ym"], eps=EPS, bm=o["bm"]))}
+    out = {}
+    for form in TIER_FORMS:
+        calls = {**tier_calls(o, form, cs, ds),
+                 **{name: c for name, c in tier_calls(d, form, cs, ds).items()
+                    if "packed" not in name}}
+        for name, (fn, plain) in calls.items():
+            base = name.removesuffix("_" + form)
+            kind = base.removesuffix("_packed")
+            data = o["words"] if base.endswith("_packed") else (
+                d["Ym"].to(torch.bfloat16) if form == "bf16d" else d["Ym"])
+            ms, plain_ms = cuda_ms(lambda: fn(W, H)), cuda_ms(lambda: plain(W, H))
+            bound_ms, bound_by = bound(products[kind] * mnk,
+                                       factors_b + tensor_bytes(data) + out_b[kind])
+            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+            print(f"timing {name} at {m}x{n} k={k}: kernel {ms:.4f} ms/call beside "
+                  f"{f32[base]:.4f} for the float32 instance ({100 * (ms / f32[base] - 1):+.1f}%), "
+                  f"plain {plain_ms:.4f} ms/call; {100 * bound_ms / ms:.1f}% of its "
+                  f"{bound_ms:.4f} ms bound ({bound_by}) [{card}]", flush=True)
+    return out
+
+
+def tiers_phase(NBMF, solve, FoldInServer, grid_solve, X, P, lastfm, lastfm_soft, tiny,
+                lastfm_mask, model, requests, weighted, times, loops, card, cs, ds, errors):
+    """Phase 10: the precision tiers and the bf16-data mode.  Returns
+    (launches, times) of each form in ``TIER_KERNELS``, the launches counted
+    over the phase's paths with the counters set to 0 before each and read
+    after it (h_terms' on the measurement path)."""
+    k = HEADLINE["k"]
+    check_tier_kernels("headline", X, P, k, card, cs, ds, errors)
+    check_tier_kernels("lastfm", lastfm, lastfm_soft, PAPER_LASTFM_K, card, cs, ds, errors)
+    check_tier_kernels("one-word-row", tiny, tiny * 0.5 + 0.25, 4, card, cs, ds, errors)
+    for label, (m, n), rank in (*W_EDGES, *H_EDGES):
+        rng = np.random.default_rng(m + n + rank)
+        check_tier_kernels(label, (rng.random((m, n)) < 0.3).astype(np.float32),
+                           rng.random((m, n)).astype(np.float32), rank, card, cs, ds, errors)
+    check_tier_lanes(X, P, k, card, cs, ds, errors)
+
+    launches = {name: 0 for name in TIER_KERNELS}
+    fits, peaks = bf16_fits(NBMF, X, P, model, card, cs, ds)
+    for total in (fits, tier_solves(solve, X, card, cs, ds),
+                  tier_serving(FoldInServer, model, requests, weighted, card, cs, ds),
+                  tier_grid_and_restarts(NBMF, grid_solve, X, lastfm, lastfm_mask, card, cs, ds)):
+        for name in launches:
+            launches[name] += total.get(name, 0)
+    measured = tier_measurement_path(card, cs, ds)
+    for form in TIER_FORMS:
+        launches[f"h_terms_{form}"] = measured[f"h_terms_{form}"]
+    print(f"tiers: launches over phase 10's paths {launches} [{card}]", flush=True)
+    for name, count in launches.items():
+        check(count > 0, f"{name} was never launched in phase 10")
+
+    tier_times = time_tier_kernels(X, P, k, times, card, cs, ds)
+    for precision in ("default", "high"):
+        for name, Y, packed in (("binary", X, True), ("dense", P, False)):
+            per = loop_ms_per_sweep(name, Y, k, packed, card, cs, precision=precision)
+            print(f"timing fused loop ({name}) precision={precision!r}: {per:.3f} ms/sweep beside "
+                  f"{loops[name]:.3f} for float32 ({100 * (per / loops[name] - 1):+.1f}%) "
+                  f"[{card}]", flush=True)
+    per = loop_ms_per_sweep("dense", P, k, False, card, cs, bf16=True)
+    print(f"timing fused loop (dense) on bf16 data: {per:.3f} ms/sweep beside {loops['dense']:.3f} "
+          f"for float32 data ({100 * (per / loops['dense'] - 1):+.1f}%) [{card}]", flush=True)
+    return launches, tier_times
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no CUDA card")
@@ -1644,7 +2173,7 @@ def main() -> None:
     lastfm = lastfm_matrix()
     lastfm_soft = np.random.default_rng(6).random(lastfm.shape).astype(np.float32)
     tiny = (np.random.default_rng(4).random((32, 40)) < 0.3).astype(np.float32)
-    errors = {name: 0.0 for name in KERNELS}
+    errors = {name: 0.0 for name in {**KERNELS, **TIER_KERNELS}}
     check_packed_kernels("headline", X, HEADLINE["k"], card, cs, errors)
     check_packed_kernels("lastfm", lastfm, 8, card, cs, errors)
     # One word row: the H pass writes Num/Den directly, without the split over m.
@@ -1720,12 +2249,22 @@ def main() -> None:
         launches[name] += lane_launches[name]
         times[name]["lanes"] = lanes[name]
     print(f"restarts and grids: {time.perf_counter() - t9:.1f} s [{card}]", flush=True)
+
+    # ------------------------------- 10. precision tiers and bf16 data
+    t10 = time.perf_counter()
+    tier_launches, tier_times = tiers_phase(
+        NBMF, solve, FoldInServer, grid_solve, X, P, lastfm, lastfm_soft, tiny, lastfm_mask,
+        model, requests, weighted, times, loops, card, cs, ds, errors)
+    launches.update(tier_launches)
+    times.update(tier_times)
+    print(f"precision tiers and bf16 data: {time.perf_counter() - t10:.1f} s [{card}]",
+          flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
     kernels = [
         {"name": name, "route": "cuda", "source": CSRC + source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name], **times[name]}
-        for name, (source, replaces) in KERNELS.items()
+        for name, (source, replaces) in {**KERNELS, **TIER_KERNELS}.items()
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,7 +17,9 @@ reaches the packed loop without a dense copy
 (:mod:`nbmf_mm_tpu_torch.ops.packed`).  Restarts (``solve(n_init=...)``)
 and hyperparameter grids (:func:`grid_solve`) run as one batched solve over
 data staged once: the kernels take a leading lane axis on the factors
-(:mod:`nbmf_mm_tpu_torch.parallel`).
+(:mod:`nbmf_mm_tpu_torch.parallel`).  ``precision="default"``/``"high"``
+round every product operand to bf16 or TF32, and ``dtype="bfloat16"`` stores
+the data bf16, on every entry point (:mod:`nbmf_mm_tpu_torch.ops.tiers`).
 
 Public surface: ``NBMF``/``NBMFMM``, :func:`solve`, :func:`nbmf_mm_solver`,
 :class:`SolverResult`, :class:`PackedMatrix`, :func:`pack_matrix`,

@@ -65,14 +65,16 @@ _FOLD_IN_SEED_OFFSET = 0x7F01  # transform's draw is seeded apart from fit's
 _FUSED_TRANSFORM_MIN_ENTRIES = 1 << 22
 
 
-def _transform_core(H, Ym, Ym2, W0t, eps, *, n_iter: int):
+def _transform_core(H, Ym, Ym2, W0t, eps, *, n_iter: int, precision=None):
     """Fold-in: find W for new data with ``H`` fixed (reference
-    ``_base.py:178-193``), ``n_iter`` beta-dir W updates from ``W0t (k, m)``,
-    then the final box clip and row renormalization (``_base.py:196-198``)."""
+    ``_base.py:178-193``), ``n_iter`` beta-dir W updates from ``W0t (k, m)``
+    with products in the tier ``precision``, then the final box clip and row
+    renormalization (``_base.py:196-198``)."""
     n_features = H.shape[1]
     Wt = W0t
     for _ in range(n_iter):
-        Wt = fold_in_w_update(Wt, H, Ym, Ym2, n_features=n_features, eps=eps)
+        Wt = fold_in_w_update(Wt, H, Ym, Ym2, n_features=n_features, eps=eps,
+                              precision=precision)
     W = torch.clamp(Wt.T, 1e-8, 1.0)
     return W / W.sum(dim=1, keepdim=True)
 
@@ -113,9 +115,17 @@ class NBMFMM(*_BASES):
     projection : {"normalize", "duchi"}, default="normalize"
     mask_mode : {"parity", "corrected"}, default="parity"
     dtype : optional
-        ``"float32"`` (default) or ``"float64"``.
+        ``"float32"`` (default), ``"float64"`` or ``"bfloat16"``: the
+        bf16-data mode, float32 factors over data stored bf16 on the kernel
+        route (never packed; ``packed=True`` with it raises), the products at
+        ``"default"``; ``transform`` stores its batch bf16 on the kernel route
+        too.  See ``solve``.
     precision : optional
-        ``None`` or ``"highest"``: IEEE fp32 products.
+        The product tier of ``fit`` and ``transform``: ``None`` or
+        ``"highest"`` IEEE fp32 products (the default); ``"high"`` every
+        product operand rounded to TF32; ``"default"`` rounded to bf16;
+        fp32 accumulation in every tier, on the CPU as on the card (the JAX
+        package computes every tier in fp32 on the CPU).
     mesh : must be None
     mesh_axes : (str, str), default ("rows", "cols")
         Stored for the reference's parameter set; unused while ``mesh`` is.
@@ -303,15 +313,16 @@ class NBMFMM(*_BASES):
             warn_large_sparse_densify(mask, "transform (mask)")
             mask = densify(mask)
 
-        dtype = _resolve_dtype(self.dtype)
-        _resolve_precision(self.precision)
+        dtype, data_dtype = _resolve_dtype(self.dtype)
+        tier = _resolve_precision(self.precision, data_dtype)
         device = cs.resolve_device(self.device)
         W0t = self._fold_in_init(X.shape[0], dtype)
         if self._use_fused_transform(X.size, dtype, device):
             from .serving import fold_in_fused
 
             W, _ = fold_in_fused(self.components_, X, mask, W0t, n_iter=_FOLD_IN_ITERS,
-                                 dtype=dtype, packed=self.packed, device=device)
+                                 dtype=data_dtype or dtype, packed=self.packed,
+                                 mxu_precision=tier, device=device)
             return W
         Xt = torch.as_tensor(X, device=device).to(dtype)
         H = torch.tensor(np.asarray(self.components_), device=device).to(dtype)
@@ -321,7 +332,8 @@ class NBMFMM(*_BASES):
             mt = torch.as_tensor(np.asarray(mask, dtype=np.float64), device=device).to(dtype)
             Ym, Ym2 = Xt * mt, (1.0 - Xt) * mt
         with ieee_fp32_products():
-            W = _transform_core(H, Ym, Ym2, W0t.to(device), 1e-8, n_iter=_FOLD_IN_ITERS)
+            W = _transform_core(H, Ym, Ym2, W0t.to(device), 1e-8, n_iter=_FOLD_IN_ITERS,
+                                precision=tier)
         return W.cpu().numpy()
 
     def inverse_transform(self, W):

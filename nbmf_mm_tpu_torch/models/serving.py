@@ -18,7 +18,14 @@ package's ``models/serving.py``).
   the same results on binary chunks;
 - outputs: the simplex weights ``W`` and each row's mean observed Bernoulli
   log-likelihood, computed once after the loop with ``torch.matmul`` (the
-  JAX package computes it outside any kernel too).
+  JAX package computes it outside any kernel too, pinned to DEFAULT; here it
+  stays an fp32 product whatever the tier);
+- ``precision`` is the product tier of every fold-in iteration, on the
+  kernels and on the plain fold-in (:mod:`~nbmf_mm_tpu_torch.ops.tiers`), and
+  ``dtype="bfloat16"`` stores each chunk's ``Ym``/``Ym2`` bf16 on the kernel
+  route, never packed, through the bf16-data W pass; the factors stay
+  float32.  (The JAX package's bf16 serving computes the factors in bf16
+  too.)
 
 ``scipy.sparse`` requests densify one chunk at a time.  On the CPU the
 kernel wrappers run their plain versions, as everywhere in this package.
@@ -38,13 +45,14 @@ from ..solver.driver import (
     _not_ported,
     _resolve_backend,
     _resolve_dtype,
+    _resolve_precision,
     ieee_fp32_products,
 )
 from ..utils.validation import check_is_fitted, densify
 
 __all__ = ["FoldInServer", "fold_in_fused"]
 
-_EPS = 1e-8
+_EPS = 1e-8  # the fold-in's eps (FoldInServer's, and fold_in_fused's default)
 
 
 def _host_binary(A: np.ndarray) -> bool:
@@ -52,30 +60,34 @@ def _host_binary(A: np.ndarray) -> bool:
 
 
 def _fold_in_chunk(Hp, A, B, W0t, *, route: str, packed: bool, n_iter: int, n_real: int,
-                   bm: int):
-    """Fold-in on padded operands: ``(W (Bp, k), per-row loglik (Bp,))``.
+                   bm: int, precision: str = "highest", eps: float = _EPS):
+    """Fold-in on padded operands: ``(W (Bp, k), per-row loglik (Bp,))``,
+    every iteration's products under the tier ``precision``.
 
     ``packed``: ``A``/``B`` are int32 words of ``Ym = X*mask`` /
     ``Ym2 = (1-X)*mask`` and every iteration streams them through
     ``w_terms_packed``; the single scoring pass unpacks them once.
-    Otherwise ``A``/``B`` are the dense ``Ym``/``Ym2`` and the iterations go
-    through ``w_terms`` (``route="fused"``) or the plain
+    Otherwise ``A``/``B`` are the dense ``Ym``/``Ym2`` (bf16 in the bf16-data
+    mode) and the iterations go through ``w_terms`` (``route="fused"``) or
+    the plain
     :func:`~nbmf_mm_tpu_torch.ops.updates.fold_in_w_update`
     (``route="plain"``).  Contract: ``Hp (k, Np)`` with zero pad columns;
     operands zero in pad rows and columns; ``W0t (k, Bp)`` with zero pad
     columns, which the multiplicative updates keep exactly zero.
     """
+    kw = dict(eps=eps, n_real=n_real, bm=bm, precision=precision)
     if packed:
         Ym = cs.unpack_bits(A, bm, W0t.dtype)
         Ym2 = cs.unpack_bits(B, bm, W0t.dtype)
-        contraction = lambda Wt: cs.w_terms_packed(Wt, Hp, A, B, eps=_EPS, n_real=n_real, bm=bm)
+        contraction = lambda Wt: cs.w_terms_packed(Wt, Hp, A, B, **kw)
     else:
-        Ym, Ym2 = A, B
-        contraction = lambda Wt: ds.w_terms(Wt, Hp, Ym, Ym2, eps=_EPS, n_real=n_real, bm=bm)
+        contraction = lambda Wt: ds.w_terms(Wt, Hp, A, B, **kw)
+        Ym, Ym2 = A.to(W0t.dtype), B.to(W0t.dtype)  # bf16 data widens exactly
     Wt = W0t
     for _ in range(n_iter):
         if route == "plain":
-            Wt = fold_in_w_update(Wt, Hp, Ym, Ym2, n_features=n_real, eps=_EPS)
+            Wt = fold_in_w_update(Wt, Hp, Ym, Ym2, n_features=n_real, eps=eps,
+                                  precision=precision)
         else:
             Wt = Wt * contraction(Wt) / n_real
             col = Wt.sum(dim=0, keepdim=True)
@@ -89,17 +101,19 @@ def _fold_in_chunk(Hp, A, B, W0t, *, route: str, packed: bool, n_iter: int, n_re
 
 
 def _stage_chunk(X, mask, *, rows_padded: int, n_cols: int, bm: int, dtype: torch.dtype,
-                 device: torch.device, route: str, packed: Optional[bool]):
+                 device: torch.device, route: str, packed: Optional[bool], data_dtype=None):
     """Pad a chunk on the host and move it to ``device``: packed words when
     the fused route may pack and the chunk is exactly binary, else the
-    dense ``Ym``/``Ym2``.  Returns ``(A, B, use_packed)``."""
+    dense ``Ym``/``Ym2``, formed in bf16 on ``device`` when ``data_dtype``
+    is bf16 (which never packs).  Returns ``(A, B, use_packed)``."""
     rows, n_features = X.shape
     host_dtype = np.float32 if dtype == torch.float32 else np.float64
     Xp = np.zeros((rows_padded, n_cols), dtype=host_dtype)
     Xp[:rows, :n_features] = X
     mp = np.zeros((rows_padded, n_cols), dtype=host_dtype)
     mp[:rows, :n_features] = 1.0 if mask is None else mask
-    binary = route == "fused" and packed is not False and _host_binary(Xp) and _host_binary(mp)
+    binary = (route == "fused" and packed is not False and data_dtype is None
+              and _host_binary(Xp) and _host_binary(mp))
     if packed is True and not binary:
         raise ValueError("packed=True requires exactly binary data (and mask) in every chunk")
     if binary:
@@ -107,8 +121,8 @@ def _stage_chunk(X, mask, *, rows_padded: int, n_cols: int, bm: int, dtype: torc
         A = torch.from_numpy(cs.pack_bits_host((Xp != 0) & observed, bm)).to(device)
         B = torch.from_numpy(cs.pack_bits_host((Xp == 0) & observed, bm)).to(device)
         return A, B, True
-    Xt = torch.from_numpy(Xp).to(device)
-    mt = torch.from_numpy(mp).to(device)
+    Xt = torch.from_numpy(Xp).to(device).to(data_dtype or dtype)
+    mt = torch.from_numpy(mp).to(device).to(data_dtype or dtype)
     return Xt * mt, (1.0 - Xt) * mt, False
 
 
@@ -135,6 +149,8 @@ def fold_in_fused(
     dtype=None,
     packed: Optional[bool] = None,
     random_state: int = 0,
+    eps: float = _EPS,
+    mxu_precision=None,
     device="cuda",
 ):
     """One-shot fused fold-in of ``X (rows, n_features)`` against a fixed
@@ -144,13 +160,20 @@ def fold_in_fused(
     seeded start ``W0t (k, rows)`` (internal layout); without one it is
     drawn U(0.1, 0.9) from ``random_state``.  ``packed`` follows the
     ``solve`` contract: ``None`` packs an exactly-binary batch, ``True``
-    requires it, ``False`` streams dense.  Returns ``(W (rows, k),
+    requires it, ``False`` streams dense.  ``eps`` is the iterations' eps
+    (the per-row scores keep 1e-8, as in the JAX package);
+    ``mxu_precision`` the kernels' product tier; ``dtype="bfloat16"``
+    stores the batch bf16 and is never packed.  Returns ``(W (rows, k),
     per_row_loglik (rows,))`` as numpy arrays.
     """
-    dtype = _resolve_dtype(dtype)
+    dtype, data_dtype = _resolve_dtype(dtype)
+    tier = _resolve_precision(mxu_precision, data_dtype)
     device = cs.resolve_device(device)
     k = H.shape[0]
     route = _resolve_backend("fused", dtype, device, True, k=k)
+    if packed is True and data_dtype is not None:
+        raise ValueError("packed=True is incompatible with dtype='bfloat16': packing replaces "
+                         "the data stream (and is both smaller and exact)")
     X = np.asarray(densify(X))
     if mask is not None:
         mask = np.asarray(densify(mask))
@@ -162,10 +185,11 @@ def fold_in_fused(
     W0t_full = torch.zeros((k, Bp), dtype=dtype)
     W0t_full[:, :rows] = torch.as_tensor(W0t, dtype=dtype)
     A, B, use_packed = _stage_chunk(X, mask, rows_padded=Bp, n_cols=Np, bm=bm, dtype=dtype,
-                                    device=device, route=route, packed=packed)
+                                    device=device, route=route, packed=packed,
+                                    data_dtype=data_dtype)
     W, scores = _fold_in_chunk(_padded_H(H, dtype, device, Np), A, B, W0t_full.to(device),
                                route=route, packed=use_packed, n_iter=n_iter,
-                               n_real=n_features, bm=bm)
+                               n_real=n_features, bm=bm, precision=tier, eps=eps)
     return W[:rows].cpu().numpy(), scores[:rows].cpu().numpy()
 
 
@@ -180,7 +204,15 @@ class FoldInServer:
     buckets : ascending row counts; requests pad to the next bucket and
         chunk by the largest.  Default: 64..8192.
     random_state : seed of each bucket's U(0.1, 0.9) start ``(k, bucket)``
-    dtype : ``"float32"`` (default) or ``"float64"``
+    dtype : ``"float32"`` (default), ``"float64"`` or ``"bfloat16"``: on the
+        kernel route each chunk's ``Ym``/``Ym2`` stored bf16 and never
+        packed (the bf16-data W pass), the factors float32; on the plain
+        route the data stays float32 and the tier is ``"default"``
+    precision : the product tier of every iteration (``None``/``"highest"``
+        IEEE fp32, ``"high"`` TF32-rounded operands, ``"default"``
+        bf16-rounded operands; ``ops.tiers``), on the kernels and on the
+        plain fold-in alike, on the CPU too (where the JAX package computes
+        every tier in fp32)
     backend : {"auto", "fused", "plain"} — ``"auto"`` serves through the
         kernels for float32 on a CUDA device at a rank within the kernels'
         cap and through the plain fold-in otherwise; ``"fused"`` raises for
@@ -188,8 +220,9 @@ class FoldInServer:
     packed : ``None`` (default) packs each exactly-binary chunk on the host
         and streams its words through ``w_terms_packed``, and streams every
         other chunk dense through ``w_terms``; ``True`` requires every chunk
-        to be exactly binary and raises otherwise; ``False`` streams dense.
-        Packed and dense results are bitwise equal.
+        to be exactly binary and raises otherwise (and with
+        ``dtype="bfloat16"``); ``False`` streams dense.  Packed and dense
+        results are bitwise equal, in every tier.
     mesh : not ported yet (raises)
     device : where the fold-in runs (default ``"cuda"``)
     """
@@ -202,6 +235,7 @@ class FoldInServer:
         buckets: Tuple[int, ...] = (64, 256, 1024, 4096, 8192),
         random_state: Optional[int] = 0,
         dtype=None,
+        precision=None,
         backend: str = "auto",
         packed: Optional[bool] = None,
         mesh=None,
@@ -216,10 +250,16 @@ class FoldInServer:
             H = model_or_H.H
         else:
             H = model_or_H
-        self.dtype = _resolve_dtype(dtype)
+        self.dtype, data_dtype = _resolve_dtype(dtype)
+        self.precision = _resolve_precision(precision, data_dtype)
         self.device = cs.resolve_device(device)
         self.k, self.n_features = H.shape
         self.route = _resolve_backend(backend, self.dtype, self.device, True, packed, self.k)
+        if packed is True and data_dtype is not None:
+            raise ValueError("packed=True is incompatible with dtype='bfloat16': packing "
+                             "replaces the data stream (and is both smaller and exact)")
+        # bf16 storage is the kernels'; the plain fold-in keeps float32 data.
+        self.data_dtype = data_dtype if self.route == "fused" else None
         self.packed = packed
         self.n_iter = int(n_iter)
         self.buckets = tuple(sorted(buckets))
@@ -240,10 +280,10 @@ class FoldInServer:
         W0t = torch.rand((self.k, Bp), generator=gen, dtype=self.dtype) * 0.8 + 0.1
         A, B, use_packed = _stage_chunk(X, mask, rows_padded=Bp, n_cols=self._Np, bm=bm,
                                         dtype=self.dtype, device=self.device, route=self.route,
-                                        packed=self.packed)
+                                        packed=self.packed, data_dtype=self.data_dtype)
         W, scores = _fold_in_chunk(self.H, A, B, _zero_pad_columns(W0t, rows).to(self.device),
                                    route=self.route, packed=use_packed, n_iter=self.n_iter,
-                                   n_real=self.n_features, bm=bm)
+                                   n_real=self.n_features, bm=bm, precision=self.precision)
         return W[:rows].cpu().numpy(), scores[:rows].cpu().numpy()
 
     @ieee_fp32_products()
@@ -281,6 +321,6 @@ class FoldInServer:
         for b in self.buckets:
             zeros = np.zeros((b, self.n_features))
             self._serve_chunk(zeros, None)
-            if self.route == "fused" and self.packed is None:
+            if self.route == "fused" and self.packed is None and self.data_dtype is None:
                 self._serve_chunk(zeros, np.full_like(zeros, 0.5))
         return self

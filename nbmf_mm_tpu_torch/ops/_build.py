@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``ops/csrc/`` with ``nvcc`` at first use and load
 them with ``ctypes``.
 
-The sources expose a plain C interface (no PyTorch headers), so each builds
-in seconds.  One ``nvcc -c`` per ``.cu`` file runs in parallel, and one more
+The sources expose a plain C interface (no PyTorch headers), and the operand
+forms of the passes (``ops/tiers.py``) have sources of their own, so that the
+build takes about as long as its longest source.  One ``nvcc -c`` per ``.cu`` file runs in parallel, and one more
 call links the objects into a shared library in
 ``<checkout>/build/nbmf_mm_tpu_torch/`` under a name keyed on a hash of the
 sources and flags, so an edit rebuilds it and an unchanged tree reuses it.
@@ -51,6 +52,17 @@ _SIGNATURES = {
     # dtype, frag, device, stream
     "nbmf_probe_reduce": [_P] * 6 + [_I] * 8 + [_P],
 }
+# The operand forms of the production passes (ops/tiers.py: the precision
+# tiers in sweep_tiers_*.cu, the bf16-data mode in sweep_bf16.cu) take the
+# f32 entry points' signatures, the form's suffix on the name.
+_SIGNATURES.update(
+    {f"nbmf_{name}_{form}": _SIGNATURES[f"nbmf_{name}"]
+     for name, forms in (("hloss_terms_packed", ("bf16r", "tf32r")),
+                         ("w_terms_packed", ("bf16r", "tf32r")),
+                         *((f"{dense}_dense", ("bf16r", "tf32r", "bf16d"))
+                           for dense in ("hloss_terms", "w_terms", "loglik_sum", "h_terms")))
+     for form in forms}
+)
 # The H- and W-pass probes of probes.cu take the production signatures
 # (with lanes == 1).
 _SIGNATURES.update(

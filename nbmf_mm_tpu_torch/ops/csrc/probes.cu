@@ -44,13 +44,13 @@ template <bool SELECT, bool BF16>
 struct Probe : Sweep {
     static constexpr bool kClampB = false;
     static constexpr bool kSelect = SELECT;
-    static constexpr bool kBf16 = BF16;
+    static constexpr Round kRound = BF16 ? Round::kBf16 : Round::kNone;
 };
 
 template <int FORM, bool BF16>
 struct Identity : Sweep {
     static constexpr int kIdentity = FORM;
-    static constexpr bool kBf16 = BF16;
+    static constexpr Round kRound = BF16 ? Round::kBf16 : Round::kNone;
 };
 
 template <bool SELECT, bool BF16>
@@ -61,7 +61,7 @@ struct OneMatmul : Probe<SELECT, BF16> {
 template <bool BF16>
 struct Chain3Tile : Sweep {
     static constexpr int kWForm = 2;
-    static constexpr bool kBf16 = BF16;
+    static constexpr Round kRound = BF16 ? Round::kBf16 : Round::kNone;
 };
 
 using ProductF32 = Probe<false, false>;

@@ -11,7 +11,8 @@
 // both take a per-entry policy E (struct Sweep below); the defaults are the
 // production passes, and the measurement probes of probes.cu set the rest.
 // Y = int32_t reads bit-packed words, Y = float reads dense (Mp, Np) f32
-// operands.  Both loaders yield the 32 data rows of word row w in the same
+// operands and Y = __nv_bfloat16 dense bf16 ones (the bf16-data mode,
+// converted to f32 in registers).  The loaders yield the 32 data rows of word row w in the same
 // bit-plane order (row0 + b*bmw for bit b), so the two instances share the
 // block split, the register accumulators and the fixed-order sums, and on
 // exactly-binary operands the dense instance gives the packed one's outputs
@@ -74,8 +75,10 @@
 //     into a second buffer while the current tile computes;
 //   - registers: __launch_bounds__ keeps two 256-thread blocks on an SM
 //     (128 registers, no spills, by ptxas -v) up to k = 128.
-// fp32 FMA on the CUDA cores throughout; TF32 on the tensor cores would
-// change the numerics and is left to the precision tiers.
+// fp32 FMA on the CUDA cores throughout.  The precision tiers and the
+// bf16-data mode (ops/tiers.py defines them) are instances whose policy
+// rounds every operand of every product to bf16 or TF32 before that FMA
+// (Sweep::kRound): the same loops, the same sums, plus the roundings.
 //
 // Lanes: every kernel here takes a leading lane axis R on the factors from
 // its grid (blockIdx.z of the two passes, blockIdx.y of the small kernels
@@ -109,9 +112,13 @@
 
 namespace {
 
+// Rounding of the product operands (the precision tiers, ops/tiers.py).
+enum class Round : int { kNone = 0, kBf16 = 1, kTf32 = 2 };
+
 // Per-entry policy of the two passes.  Sweep is the production policy; the
-// measurement probes of probes.cu derive from it and change single values,
-// so every production instance compiles to the code it had without them.
+// measurement probes of probes.cu and the tier forms (Tier, below) derive
+// from it and change single values, so every production instance
+// compiles to the code it had without them.
 struct Sweep {
     // b = max(1 - WH, 0) + eps; false: 1 - WH + eps (the tools/ probes).
     static constexpr bool kClampB = true;
@@ -126,18 +133,50 @@ struct Sweep {
     // T = H.(P-Q)^T + sum_n Q; 2 chain3_tile, T = H.WH^T and
     // T2 = H.(WH+1)^T written as rows k..2k-1 of T.
     static constexpr int kWForm = 0;
-    // Round W, H and the tile values to bf16 (nearest even) before the fp32
-    // FMA: the TPU's one-pass bf16 matmul.  Sums stay fp32.
-    static constexpr bool kBf16 = false;
+    // Round every operand of every product before the fp32 FMA (sums stay
+    // fp32): kBf16 to bf16, nearest even (the TPU's one-pass bf16 matmul:
+    // precision DEFAULT, and every product of the bf16-data mode); kTf32 to
+    // TF32, nearest with ties away from zero (precision HIGH).  The probes
+    // round W, H and the tile values; the production forms also p, q and the
+    // W pass's 1 - h.
+    static constexpr Round kRound = Round::kNone;
+    // The W pass's 1 - h operand under a rounding: false round(1 - h), the
+    // MXU rounding the f32 difference (a tier over f32 data); true
+    // round(1 - round(h)), the TPU kernel forming 1.0 - h in bf16 from the
+    // bf16 h (the bf16-data mode, pallas_sweep.py:379).
+    static constexpr bool kHcOfRounded = false;
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool BF16>
+// What cvt.rna.tf32.f32 gives, as a bit operation on finite values (the
+// mantissa's 13 low bits cleared after adding half of their weight to the
+// magnitude); infinities and NaNs pass unchanged.
+__device__ __forceinline__ float round_tf32(float x) {
+    const uint32_t u = __float_as_uint(x);
+    if ((u & 0x7f800000u) == 0x7f800000u) return x;
+    return __uint_as_float((u + 0x1000u) & ~0x1fffu);
+}
+
+// The production passes under a precision tier or in the bf16-data mode
+// (ops/tiers.py): every operand of every product rounded, W, H, p, q and the
+// W pass's 1 - h (by the rule HC_OF_ROUNDED).  Instantiated in
+// sweep_tiers_*.cu and sweep_bf16.cu.
+template <Round R, bool HC_OF_ROUNDED = false>
+struct Tier : Sweep {
+    static constexpr Round kRound = R;
+    static constexpr bool kHcOfRounded = HC_OF_ROUNDED;
+};
+using TierBf16r = Tier<Round::kBf16>;        // precision "default" over f32 data
+using TierTf32r = Tier<Round::kTf32>;        // precision "high"
+using TierBf16d = Tier<Round::kBf16, true>;  // dtype "bfloat16": bf16 data
+
+template <Round R>
 __device__ __forceinline__ float mxu_operand(float x) {
-    if constexpr (BF16) return round_bf16(x);
+    if constexpr (R == Round::kBf16) return round_bf16(x);
+    if constexpr (R == Round::kTf32) return round_tf32(x);
     return x;
 }
 
@@ -219,6 +258,13 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
                  "r"(src_size));
 }
+// The bf16 operand rows: 4 values, 8 bytes.
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* gmem_src, bool valid) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+    const int src_size = valid ? 8 : 0;  // 0: the 8 bytes are zero-filled
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem_src),
+                 "r"(src_size));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -235,17 +281,30 @@ __device__ __forceinline__ float lane(const float4& v, int c) {
 }
 __device__ __forceinline__ float4 f4(const float v[4]) { return make_float4(v[0], v[1], v[2], v[3]); }
 
+// Four bf16 values (8 bytes, the first in the low half) as f32, exactly.
+__device__ __forceinline__ void bf16x4(const uint2 u, float v[4]) {
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+// A dense operand type (f32, or bf16 in the bf16-data mode); int32 words are
+// the packed operand.
+template <typename Y>
+constexpr bool dense_operand() { return !std::is_same<Y, int32_t>::value; }
+
 // Shapes of one W-pass instance: TK k rows per thread (kpad = 16 TK >= k).
 template <int TK, bool SECOND, typename Y, class E>
 struct WPass {
-    static constexpr bool kDense = std::is_same<Y, float>::value;
+    static constexpr bool kDense = dense_operand<Y>();
     static constexpr bool kReads = E::kWForm != 2;  // chain3_tile reads no operand
     static constexpr bool kHc = E::kWForm == 0;     // (1 - H).Q^T
     static constexpr int kpad = 16 * TK;
     static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
     // Shared memory in floats: Ws [kpad/4][64][4]; Hs two stages of
     // [kpad][32]; Hc [kpad][32]; Ps, Qs [64][32]; operand tiles, dense
-    // [64][32] or words [2][32], each.
+    // [64][32] (bf16 ones fill half of that room) or words [2][32], each.
     static constexpr int kWs = kpad * kWRows;
     static constexpr int kHs = kpad * kWCols;
     static constexpr int kPQ = kWRows * kWCols;
@@ -290,7 +349,7 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
         const int w = w0 + lr / 32;
         const float v =
             (kk < k && w < Mw) ? W[(size_t)kk * Mp + word_row_bit(w, lr % 32, bm, bmw)] : 0.f;
-        Ws[((kk >> 2) * kWRows + lr) * 4 + (kk & 3)] = mxu_operand<E::kBf16>(v);
+        Ws[((kk >> 2) * kWRows + lr) * 4 + (kk & 3)] = mxu_operand<E::kRound>(v);
     }
 
     // Issue the cp.async copies of tile `tile` into H stage `st` and the
@@ -313,8 +372,13 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                 const bool ok = w < Mw && col < Np;
                 const Y* src = op ? y2 : y;
                 const size_t row = kDense ? (size_t)word_row_bit(w, r % 32, bm, bmw) : (size_t)w;
-                cp_async16(Ys + op * P::kYs + r * kWCols + 4 * ch, ok ? src + row * Np + col : src,
-                           ok);
+                if constexpr (sizeof(Y) == 4) {
+                    cp_async16(Ys + op * P::kYs + r * kWCols + 4 * ch,
+                               ok ? src + row * Np + col : src, ok);
+                } else {
+                    cp_async8(reinterpret_cast<Y*>(Ys + op * P::kYs) + r * kWCols + 4 * ch,
+                              ok ? src + row * Np + col : src, ok);
+                }
             }
         }
         cp_async_commit();
@@ -342,13 +406,29 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
         float* Hs = Hbuf + st * P::kHs;
         cp_async_wait_all();
         __syncthreads();  // tile t has landed; the previous phase B is done
-        if constexpr (E::kBf16) {
-            for (int e = tid; e < P::kHs; e += kThreads) Hs[e] = round_bf16(Hs[e]);
+        if constexpr (E::kRound != Round::kNone && P::kHc) {
+            // The two operands of the tile: h and 1 - h, each rounded (1 - h
+            // by the rule of Sweep::kHcOfRounded), before phase A reads h.
+            for (int e = tid; e < P::kHs / 4; e += kThreads) {
+                float4 v = reinterpret_cast<const float4*>(Hs)[e];
+                float h[4] = {v.x, v.y, v.z, v.w}, c[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float r = mxu_operand<E::kRound>(h[i]);
+                    c[i] = mxu_operand<E::kRound>(1.f - (E::kHcOfRounded ? r : h[i]));
+                    h[i] = r;
+                }
+                reinterpret_cast<float4*>(Hs)[e] = f4(h);
+                reinterpret_cast<float4*>(Hc)[e] = f4(c);
+            }
+            __syncthreads();
+        } else if constexpr (E::kRound != Round::kNone) {
+            for (int e = tid; e < P::kHs; e += kThreads) Hs[e] = mxu_operand<E::kRound>(Hs[e]);
             __syncthreads();
         }
 
         // ---- phase A: 1 - h, the WH tile, p and q
-        if constexpr (P::kHc) {
+        if constexpr (P::kHc && E::kRound == Round::kNone) {
             for (int e = tid; e < P::kHs / 4; e += kThreads) {
                 float4 v = reinterpret_cast<const float4*>(Hs)[e];
                 v.x = 1.f - v.x;
@@ -393,13 +473,19 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
             const int lr = rw + 32 * j;
             float ym[4] = {0.f, 0.f, 0.f, 0.f}, ym2[4] = {0.f, 0.f, 0.f, 0.f};
             uint32_t word[4] = {0u, 0u, 0u, 0u}, word2[4] = {0u, 0u, 0u, 0u};
-            if constexpr (P::kReads && kDense) {
+            if constexpr (P::kReads && kDense && sizeof(Y) == 4) {
                 const float4 v = reinterpret_cast<const float4*>(Ys + lr * kWCols)[cq];
                 ym[0] = v.x, ym[1] = v.y, ym[2] = v.z, ym[3] = v.w;
                 if constexpr (SECOND) {
                     const float4 v2 = reinterpret_cast<const float4*>(Ys + P::kYs + lr * kWCols)[cq];
                     ym2[0] = v2.x, ym2[1] = v2.y, ym2[2] = v2.z, ym2[3] = v2.w;
                 }
+            } else if constexpr (P::kReads && kDense) {
+                bf16x4(reinterpret_cast<const uint2*>(reinterpret_cast<const Y*>(Ys) +
+                                                      lr * kWCols)[cq], ym);
+                if constexpr (SECOND)
+                    bf16x4(reinterpret_cast<const uint2*>(reinterpret_cast<const Y*>(Ys + P::kYs) +
+                                                          lr * kWCols)[cq], ym2);
             } else if constexpr (P::kReads) {
                 const int4 v = reinterpret_cast<const int4*>(Ys + j * kWCols)[cq];
                 word[0] = v.x, word[1] = v.y, word[2] = v.z, word[3] = v.w;
@@ -415,8 +501,8 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                 const bool col_in = col < Np;
                 const float v = wh[j][c];
                 if constexpr (E::kWForm == 2) {
-                    pv[c] = col_in ? mxu_operand<E::kBf16>(v) : 0.f;
-                    qv[c] = col_in ? mxu_operand<E::kBf16>(v + 1.f) : 0.f;
+                    pv[c] = col_in ? mxu_operand<E::kRound>(v) : 0.f;
+                    qv[c] = col_in ? mxu_operand<E::kRound>(v + 1.f) : 0.f;
                     continue;
                 }
                 const float a = v + eps;
@@ -424,8 +510,8 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                 const float rr = 1.f / (a * b);
                 if constexpr (kDense) {
                     const float cm = SECOND ? ym2[c] : (col < n_real ? 1.f - ym[c] : 0.f);
-                    pv[c] = col_in ? ym[c] * (b * rr) : 0.f;
-                    qv[c] = col_in ? cm * (a * rr) : 0.f;
+                    pv[c] = col_in ? mxu_operand<E::kRound>(ym[c] * (b * rr)) : 0.f;
+                    qv[c] = col_in ? mxu_operand<E::kRound>(cm * (a * rr)) : 0.f;
                 } else {
                     const bool bit = (word[c] >> rw) & 1u;
                     const bool bit2 = SECOND ? ((word2[c] >> rw) & 1u) : (!bit && col < n_real);
@@ -443,11 +529,12 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                     if constexpr (E::kWForm == 1) {
                         // P - Q, where(bit, b r, -q) in the select form; both
                         // forms give the same bits.  Q itself stays fp32.
-                        pv[c] = mxu_operand<E::kBf16>(E::kSelect ? (bit ? p : -q) : p - q);
+                        pv[c] = mxu_operand<E::kRound>(E::kSelect ? (bit ? p : -q) : p - q);
+                        qv[c] = q;
                     } else {
-                        pv[c] = p;
+                        pv[c] = mxu_operand<E::kRound>(p);
+                        qv[c] = mxu_operand<E::kRound>(q);
                     }
-                    qv[c] = q;
                 }
             }
             const int chunk = lr * (kWCols / 4) + (cq ^ (lr & 7));
@@ -608,14 +695,14 @@ constexpr int kHRows = 32;  // data rows per step: one word row
 // Shapes of one H-pass instance: TK k rows per thread (kpad = 16 TK >= k).
 template <int TK, bool SECOND, typename Y, bool TERMS, class E>
 struct HPass {
-    static constexpr bool kDense = std::is_same<Y, float>::value;
+    static constexpr bool kDense = dense_operand<Y>();
     // Identity forms 1 and 3 read no data operand.
     static constexpr bool kReads = E::kIdentity == 0 || E::kIdentity == 2;
     static constexpr int kpad = 16 * TK;
     static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
     // Shared memory in floats: Hs [kpad/4][64][4]; Ws two stages of
     // [kpad][32]; Ps, Qs [64][32] (TERMS only); operand tiles, dense
-    // [32][64] or words [64], each.
+    // [32][64] (bf16 ones fill half of that room) or words [64], each.
     static constexpr int kHs = kpad * kHCols;
     static constexpr int kWs = kpad * kHRows;
     static constexpr int kPQ = TERMS ? kHCols * kHRows : 0;
@@ -637,7 +724,20 @@ __global__ void bitplane_w_kernel(const float* __restrict__ W, float* __restrict
     if (e >= (size_t)k * Mp) return;
     const size_t lane0 = (size_t)blockIdx.y * k * Mp;
     const int kk = (int)(e / Mp), c = (int)(e % Mp);
-    Wp[lane0 + e] = mxu_operand<BF16>(
+    Wp[lane0 + e] = mxu_operand<BF16 ? Round::kBf16 : Round::kNone>(
+        W[lane0 + (size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
+}
+
+// The same copy rounded to TF32 (precision HIGH): a kernel of its own, so
+// that the instances above keep their names and code.
+template <int = 0>
+__global__ void bitplane_w_tf32_kernel(const float* __restrict__ W, float* __restrict__ Wp,
+                                       int k, int Mp, int bm) {
+    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= (size_t)k * Mp) return;
+    const size_t lane0 = (size_t)blockIdx.y * k * Mp;
+    const int kk = (int)(e / Mp), c = (int)(e % Mp);
+    Wp[lane0 + e] = round_tf32(
         W[lane0 + (size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
 }
 
@@ -675,7 +775,7 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
     for (int e = tid; e < kpad * kHCols; e += kThreads) {
         const int kk = e / kHCols, c = e % kHCols;
         const float v = (kk < k && c0 + c < Np) ? H[(size_t)kk * Np + c0 + c] : 0.f;
-        Hs[((kk >> 2) * kHCols + c) * 4 + (kk & 3)] = mxu_operand<E::kBf16>(v);
+        Hs[((kk >> 2) * kHCols + c) * 4 + (kk & 3)] = mxu_operand<E::kRound>(v);
     }
 
     // Issue the cp.async copies of word row w's W slice into stage `st` and
@@ -698,7 +798,11 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
                 const Y* src = op ? y2 : y;
                 const size_t row = kDense ? (size_t)(row0 + b * bmw) : (size_t)w;
                 const int dst = kDense ? b * kHCols + 4 * (ch ^ ((b >> 2) & 7)) : 4 * ch;
-                cp_async16(Ys + op * P::kYs + dst, ok ? src + row * Np + col : src, ok);
+                if constexpr (sizeof(Y) == 4)
+                    cp_async16(Ys + op * P::kYs + dst, ok ? src + row * Np + col : src, ok);
+                else
+                    cp_async8(reinterpret_cast<Y*>(Ys + op * P::kYs) + dst,
+                              ok ? src + row * Np + col : src, ok);
             }
         }
         cp_async_commit();
@@ -762,12 +866,20 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
             const int cl = cw + 32 * j, col = c0 + cl;
             float ym[4] = {0.f, 0.f, 0.f, 0.f}, yc[4] = {0.f, 0.f, 0.f, 0.f};
             uint32_t word = 0u, word2 = 0u;
-            if constexpr (P::kReads && kDense) {
+            if constexpr (P::kReads && kDense && sizeof(Y) == 4) {
 #pragma unroll
                 for (int r = 0; r < 4; ++r) {
                     const int at = (4 * rq + r) * kHCols + 4 * ((cl >> 2) ^ rq) + (cl & 3);
                     ym[r] = Ys[at];
                     if constexpr (SECOND) yc[r] = Ys[P::kYs + at];
+                }
+            } else if constexpr (P::kReads && kDense) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    const int at = (4 * rq + r) * kHCols + 4 * ((cl >> 2) ^ rq) + (cl & 3);
+                    ym[r] = __bfloat162float(reinterpret_cast<const Y*>(Ys)[at]);
+                    if constexpr (SECOND)
+                        yc[r] = __bfloat162float(reinterpret_cast<const Y*>(Ys + P::kYs)[at]);
                 }
             } else if constexpr (P::kReads) {
                 word = reinterpret_cast<const uint32_t*>(Ys)[cl];
@@ -788,7 +900,7 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
                 } else if constexpr (E::kIdentity == 3) {
                     // o2 sums o1 after each stripe: weight stripe j's rounded
                     // WH by S - j, exactly (8 significant bits times S < 2^16).
-                    p = mxu_operand<E::kBf16>(v);
+                    p = mxu_operand<E::kRound>(v);
                     q = (float)(Mp / bm - stripe) * p;
                 } else {
                     const float a = v + eps;
@@ -826,8 +938,8 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
                         if (LOSS && in_region) ll += (double)fmaf(ymf, logf(a), c * logf(bb));
                     }
                 }
-                pv[r] = mxu_operand<E::kBf16>(p);
-                qv[r] = mxu_operand<E::kBf16 && E::kIdentity != 3>(q);
+                pv[r] = mxu_operand<E::kRound>(p);
+                qv[r] = mxu_operand<E::kIdentity == 3 ? Round::kNone : E::kRound>(q);
             }
             if constexpr (TERMS) {
                 const int chunk = cl * (kHRows / 4) + (rq ^ (cl & 7));
@@ -950,8 +1062,12 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
     if (err != cudaSuccess) return (int)err;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const size_t count = (size_t)k * Mp;
-    bitplane_w_kernel<E::kBf16><<<dim3((unsigned)((count + kThreads - 1) / kThreads), lanes),
-                                  kThreads, 0, stream>>>(W, wperm, k, Mp, bm);
+    const dim3 copy_grid((unsigned)((count + kThreads - 1) / kThreads), lanes);
+    if constexpr (E::kRound == Round::kTf32)
+        bitplane_w_tf32_kernel<0><<<copy_grid, kThreads, 0, stream>>>(W, wperm, k, Mp, bm);
+    else
+        bitplane_w_kernel<E::kRound == Round::kBf16><<<copy_grid, kThreads, 0, stream>>>(
+            W, wperm, k, Mp, bm);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = dispatch_tk<HpassLauncher<SECOND, Y, TERMS, LOSS, E>>(
@@ -973,19 +1089,21 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
     return (int)cudaGetLastError();
 }
 
-// The production H pass from the operands y and, when given, y2.
-template <typename Y, bool TERMS, bool LOSS = true>
+// The production H pass (or a tier form of it, policy E) from the operands
+// y and, when given, y2.
+template <typename Y, bool TERMS, bool LOSS = true, class E = Sweep>
 int run_hloss(const float* W, const float* H, const Y* y, const Y* y2, float* num, float* den,
               float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,
               int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,
               int device, void* stream_ptr) {
     if (y2 != nullptr)
-        return run_hloss_as<true, Y, TERMS, LOSS>(W, H, y, y2, num, den, num_part, den_part,
+        return run_hloss_as<true, Y, TERMS, LOSS, E>(W, H, y, y2, num, den, num_part, den_part,
+                                                     ll_part, ll, wperm, k, Mp, Np, bm, m_real,
+                                                     n_real, nsplit, lanes, eps, device,
+                                                     stream_ptr);
+    return run_hloss_as<false, Y, TERMS, LOSS, E>(W, H, y, y2, num, den, num_part, den_part,
                                                   ll_part, ll, wperm, k, Mp, Np, bm, m_real,
                                                   n_real, nsplit, lanes, eps, device, stream_ptr);
-    return run_hloss_as<false, Y, TERMS, LOSS>(W, H, y, y2, num, den, num_part, den_part, ll_part,
-                                               ll, wperm, k, Mp, Np, bm, m_real, n_real, nsplit,
-                                               lanes, eps, device, stream_ptr);
 }
 
 // The W pass of one instance for `lanes` pairs of factors W (lanes, k, Mp),
@@ -1017,16 +1135,74 @@ int run_wterms_as(const float* W, const float* H, const Y* y, const Y* y2, float
     return (int)cudaGetLastError();
 }
 
-// The production W pass: T (k, Mp) from the operands y and, when given, y2.
-template <typename Y>
+// The production W pass (or a tier form of it, policy E): T (k, Mp) from
+// the operands y and, when given, y2.
+template <typename Y, class E = Sweep>
 int run_wterms(const float* W, const float* H, const Y* y, const Y* y2, float* T, float* part,
                int k, int Mp, int Np, int bm, int n_real, int nsplit, int lanes, float eps,
                int device, void* stream_ptr) {
     if (y2 != nullptr)
-        return run_wterms_as<true, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, lanes,
+        return run_wterms_as<true, Y, E>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit,
+                                         lanes, eps, device, stream_ptr);
+    return run_wterms_as<false, Y, E>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, lanes,
                                       eps, device, stream_ptr);
-    return run_wterms_as<false, Y>(W, H, y, y2, T, part, k, Mp, Np, bm, n_real, nsplit, lanes,
-                                   eps, device, stream_ptr);
 }
 
 }  // namespace
+
+// The C entry points of one operand form, with the signatures of the f32
+// ones (sweep_packed.cu, sweep_dense.cu) and the form's suffix on the name.
+#define NBMF_PACKED_FORM(SUFFIX, POLICY)                                                          \
+    int nbmf_hloss_terms_packed##SUFFIX(                                                          \
+        const float* W, const float* H, const int32_t* words, const int32_t* words2, float* num,  \
+        float* den, float* num_part, float* den_part, double* ll_part, float* ll, float* wperm,   \
+        int k, int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,  \
+        int device, void* stream_ptr) {                                                           \
+        return run_hloss<int32_t, true, true, POLICY>(W, H, words, words2, num, den, num_part,    \
+                                                      den_part, ll_part, ll, wperm, k, Mp, Np,    \
+                                                      bm, m_real, n_real, nsplit, lanes, eps,     \
+                                                      device, stream_ptr);                        \
+    }                                                                                             \
+    int nbmf_w_terms_packed##SUFFIX(const float* W, const float* H, const int32_t* words,         \
+                                    const int32_t* words2, float* T, float* part, int k, int Mp,  \
+                                    int Np, int bm, int n_real, int nsplit, int lanes, float eps, \
+                                    int device, void* stream_ptr) {                               \
+        return run_wterms<int32_t, POLICY>(W, H, words, words2, T, part, k, Mp, Np, bm, n_real,   \
+                                           nsplit, lanes, eps, device, stream_ptr);               \
+    }
+
+#define NBMF_DENSE_FORM(SUFFIX, Y, POLICY)                                                        \
+    int nbmf_hloss_terms_dense##SUFFIX(                                                           \
+        const float* W, const float* H, const Y* Ym, const Y* Yc, float* num, float* den,         \
+        float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,        \
+        int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,         \
+        int device, void* stream_ptr) {                                                           \
+        return run_hloss<Y, true, true, POLICY>(W, H, Ym, Yc, num, den, num_part, den_part,       \
+                                                ll_part, ll, wperm, k, Mp, Np, bm, m_real,        \
+                                                n_real, nsplit, lanes, eps, device, stream_ptr);  \
+    }                                                                                             \
+    int nbmf_h_terms_dense##SUFFIX(                                                               \
+        const float* W, const float* H, const Y* Ym, const Y* Yc, float* num, float* den,         \
+        float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,        \
+        int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,         \
+        int device, void* stream_ptr) {                                                           \
+        return run_hloss<Y, true, false, POLICY>(W, H, Ym, Yc, num, den, num_part, den_part,      \
+                                                 ll_part, ll, wperm, k, Mp, Np, bm, m_real,       \
+                                                 n_real, nsplit, lanes, eps, device, stream_ptr); \
+    }                                                                                             \
+    int nbmf_w_terms_dense##SUFFIX(const float* W, const float* H, const Y* Ym, const Y* Ym2,     \
+                                   float* T, float* part, int k, int Mp, int Np, int bm,          \
+                                   int n_real, int nsplit, int lanes, float eps, int device,      \
+                                   void* stream_ptr) {                                            \
+        return run_wterms<Y, POLICY>(W, H, Ym, Ym2, T, part, k, Mp, Np, bm, n_real, nsplit,       \
+                                     lanes, eps, device, stream_ptr);                             \
+    }                                                                                             \
+    int nbmf_loglik_sum_dense##SUFFIX(const float* W, const float* H, const Y* Ym, const Y* Yc,   \
+                                      double* ll_part, float* ll, float* wperm, int k, int Mp,    \
+                                      int Np, int bm, int m_real, int n_real, int nsplit,         \
+                                      int lanes, float eps, int device, void* stream_ptr) {       \
+        return run_hloss<Y, false, true, POLICY>(W, H, Ym, Yc, nullptr, nullptr, nullptr,         \
+                                                 nullptr, ll_part, ll, wperm, k, Mp, Np, bm,      \
+                                                 m_real, n_real, nsplit, lanes, eps, device,      \
+                                                 stream_ptr);                                     \
+    }

@@ -30,9 +30,16 @@ the unbatched call, so lane ``r`` equals the unbatched call on
 unbatched plain version lane by lane (:func:`per_lane`), so the same holds
 on the CPU.
 
-``LAUNCHES`` counts kernel launches per wrapper and ``LANES`` the lanes those
-launches carried, so a run can show that it went through the kernels and
-with how many lanes.  Pad handling: the data, W's pad columns and H's
+Both wrappers take ``precision=`` (``None``/``"highest"``, ``"high"``,
+``"default"``; :mod:`~nbmf_mm_tpu_torch.ops.tiers` defines the tiers): a
+reduced tier launches the kernel instance that rounds every product operand
+(``nbmf_*_packed_bf16r``, ``_tf32r``), and the plain version rounds the same
+operands by the same rules.
+
+``LAUNCHES`` counts kernel launches per wrapper and operand form (the key is
+the wrapper's name with the form's suffix, :func:`tiers.suffix`) and
+``LANES`` the lanes those launches carried, so a run can show that it went
+through the kernels, in which form and with how many lanes.  Pad handling: the data, W's pad columns and H's
 pad columns are zero; the log-likelihood is masked exactly to
 ``row < m_real and col < n_real`` (the JAX packed kernel instead adds
 ``log(1 + eps)`` per pad entry).
@@ -44,6 +51,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import tiers
 
 __all__ = [
     "LAUNCHES",
@@ -75,8 +84,11 @@ MAX_RANK = 256  # largest k the kernels take
 
 MAX_LANES = 65535  # largest lane count one launch takes (a grid dimension)
 
-LAUNCHES = {"hloss_terms_packed": 0, "w_terms_packed": 0}
-LANES = {"hloss_terms_packed": 0, "w_terms_packed": 0}
+# The packed kernels' forms: the tiers over words (bf16 data never packs).
+PACKED_FORMS = ("f32", "bf16r", "tf32r")
+LAUNCHES = {name + tiers.suffix(form): 0 for name in ("hloss_terms_packed", "w_terms_packed")
+            for form in PACKED_FORMS}
+LANES = dict(LAUNCHES)
 
 # The W pass's block (csrc/sweep_kernels.cuh ``wpass_kernel``): 64 data rows
 # (two word rows) by a column chunk walked in 32-column tiles.
@@ -199,10 +211,14 @@ def _ratio_terms(W, H, eps):
     return a, b, r
 
 
-def hloss_terms_packed_plain(W, H, words, words2=None, *, eps, m_real, n_real, bm):
-    """Plain PyTorch version of the K1 kernel: ``(Num, Den, ll)``."""
+def hloss_terms_packed_plain(W, H, words, words2=None, *, eps, m_real, n_real, bm,
+                             precision=None):
+    """Plain PyTorch version of the K1 kernel: ``(Num, Den, ll)``, each
+    product operand rounded as the ``precision`` tier says."""
+    form = tiers.operand_form(precision)
+    W = tiers.mxu_round(W, form)
     bit = _unpack_planes(words, bm)
-    a, b, r = _ratio_terms(W, H, eps)
+    a, b, r = _ratio_terms(W, tiers.mxu_round(H, form), eps)
     p = torch.where(bit, b * r, 0.0)
     if words2 is not None:
         bit2 = _unpack_planes(words2, bm)
@@ -215,22 +231,26 @@ def hloss_terms_packed_plain(W, H, words, words2=None, *, eps, m_real, n_real, b
     rows = torch.arange(Mp, device=W.device)[:, None] < m_real
     cols = torch.arange(Np, device=W.device)[None, :] < n_real
     ll = torch.where(rows & cols, torch.log(sel), 0.0).sum(dtype=torch.float64)
-    return W @ p, W @ q, ll.to(W.dtype)
+    return W @ tiers.mxu_round(p, form), W @ tiers.mxu_round(q, form), ll.to(W.dtype)
 
 
-def w_terms_packed_plain(W, H_new, words, words2=None, *, eps, n_real, bm):
-    """Plain PyTorch version of the K2 kernel: ``T (k, Mp)``."""
+def w_terms_packed_plain(W, H_new, words, words2=None, *, eps, n_real, bm, precision=None):
+    """Plain PyTorch version of the K2 kernel: ``T (k, Mp)``, each product
+    operand rounded as the ``precision`` tier says (``1 - H`` by
+    :func:`tiers.complement`)."""
+    form = tiers.operand_form(precision)
     bit = _unpack_planes(words, bm)
-    a, b, r = _ratio_terms(W, H_new, eps)
+    H = tiers.mxu_round(H_new, form)
+    a, b, r = _ratio_terms(tiers.mxu_round(W, form), H, eps)
     if words2 is not None:
         bit2 = _unpack_planes(words2, bm)
     else:
         cols = torch.arange(bit.shape[1], device=W.device)[None, :] < n_real
         bit2 = ~bit & cols
-    p = torch.where(bit, b * r, 0.0)
-    q = torch.where(bit2, a * r, 0.0)
+    p = tiers.mxu_round(torch.where(bit, b * r, 0.0), form)
+    q = tiers.mxu_round(torch.where(bit2, a * r, 0.0), form)
     # Two nonnegative products; never H (P - Q)^T + sum Q (cancellation).
-    return H_new @ p.T + (1.0 - H_new) @ q.T
+    return H @ p.T + tiers.complement(H_new, form) @ q.T
 
 
 # ------------------------------------------------------------------ wrappers
@@ -261,9 +281,10 @@ def per_lane(fn, W, H, *operands, **kw):
     return torch.stack(outs)
 
 
-def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False, batched=False):
+def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False, batched=False, bf16=False):
     """Device, type, contiguity and shape checks before a launch: ``y``/``y2``
-    are int32 words ``(Mp//32, Np)``, or with ``dense`` f32 ``(Mp, Np)``.
+    are int32 words ``(Mp//32, Np)``, or with ``dense`` f32 ``(Mp, Np)``
+    (bf16 with ``bf16``, the bf16-data instances).
     Factors with a leading lane axis pass only with ``batched`` (the five
     production passes).  Returns the lane count, ``None`` when unbatched."""
     if W.device.type != "cuda":
@@ -274,7 +295,7 @@ def _check_cuda_operands(who, W, H, y, y2, bm, *, dense=False, batched=False):
     k, Mp = W.shape[-2:]
     Np = H.shape[-1]
     dev = W.device
-    y_dtype = torch.float32 if dense else torch.int32
+    y_dtype = (torch.bfloat16 if bf16 else torch.float32) if dense else torch.int32
     for name, t, dtype in (("W", W, torch.float32), ("H", H, torch.float32),
                            ("y", y, y_dtype), ("y2", y2, y_dtype)):
         if t is None:
@@ -499,6 +520,7 @@ def hloss_terms_packed(
     m_real: int,
     n_real: int,
     bm: int,
+    precision=None,
 ):
     """Fused H-update + loss pass over packed words: ``(Num, Den, ll)``.
 
@@ -507,16 +529,17 @@ def hloss_terms_packed(
     ``words2=None`` takes the complement ``1 - Ym`` (unmasked and parity);
     an explicit ``words2`` packing ``(1 - Y) * mask`` serves
     ``mask_mode="corrected"``.  ``ll`` is the log-likelihood summed over the
-    real ``(m_real, n_real)`` region.
+    real ``(m_real, n_real)`` region.  ``precision`` picks the tier.
     """
+    name = "hloss_terms_packed" + tiers.suffix(tiers.operand_form(precision))
     if W.device.type == "cpu":
         return per_lane(hloss_terms_packed_plain, W, H, words, words2, eps=eps, m_real=m_real,
+                        n_real=n_real, bm=bm, precision=precision)
+    lanes = _check_cuda_operands(name, W, H, words, words2, bm, batched=True)
+    out = _launch_hloss("nbmf_" + name, name, W, H, words, words2, eps=eps, m_real=m_real,
                         n_real=n_real, bm=bm)
-    lanes = _check_cuda_operands("hloss_terms_packed", W, H, words, words2, bm, batched=True)
-    out = _launch_hloss("nbmf_hloss_terms_packed", "hloss_terms_packed", W, H, words, words2,
-                        eps=eps, m_real=m_real, n_real=n_real, bm=bm)
-    LAUNCHES["hloss_terms_packed"] += 1
-    LANES["hloss_terms_packed"] += lanes or 1
+    LAUNCHES[name] += 1
+    LANES[name] += lanes or 1
     return out
 
 
@@ -529,20 +552,22 @@ def w_terms_packed(
     eps: float,
     n_real: int,
     bm: int,
+    precision=None,
 ) -> torch.Tensor:
     """Packed W-update contraction ``T = H P^T + (1 - H) Q^T`` (``(k, Mp)``,
     or ``(R, k, Mp)`` for factors with a leading lane axis).
 
     ``words2=None`` synthesizes the unmasked complement with column validity;
     an explicit ``words2`` (packing ``(1 - Y) * mask``) serves both masked
-    modes.
+    modes.  ``precision`` picks the tier.
     """
+    name = "w_terms_packed" + tiers.suffix(tiers.operand_form(precision))
     if W.device.type == "cpu":
         return per_lane(w_terms_packed_plain, W, H_new, words, words2, eps=eps, n_real=n_real,
-                        bm=bm)
-    lanes = _check_cuda_operands("w_terms_packed", W, H_new, words, words2, bm, batched=True)
-    T = _launch_wterms("nbmf_w_terms_packed", "w_terms_packed", W, H_new, words, words2,
-                       eps=eps, n_real=n_real, bm=bm)
-    LAUNCHES["w_terms_packed"] += 1
-    LANES["w_terms_packed"] += lanes or 1
+                        bm=bm, precision=precision)
+    lanes = _check_cuda_operands(name, W, H_new, words, words2, bm, batched=True)
+    T = _launch_wterms("nbmf_" + name, name, W, H_new, words, words2, eps=eps, n_real=n_real,
+                       bm=bm)
+    LAUNCHES[name] += 1
+    LANES[name] += lanes or 1
     return T

@@ -22,9 +22,21 @@ Per entry, with ``a = WH + eps``, ``b = max(1 - WH, 0) + eps`` and
 equals the packed select bitwise, so the dense and packed passes agree
 bitwise, on the CPU and on the card.
 
+Operand forms (:mod:`~nbmf_mm_tpu_torch.ops.tiers`): every wrapper takes
+``precision=`` and a bf16 ``Ym`` (with ``Yc``/``Ym2`` bf16 too).  f32 data
+under ``None``/``"highest"`` runs the f32 instance (``csrc/sweep_dense.cu``);
+``"default"`` and ``"high"`` the instances that round every product operand
+to bf16 or TF32 (``sweep_tiers_bf16r.cu``, ``sweep_tiers_tf32r.cu``); bf16
+data, whatever ``precision`` says, the bf16-data instance
+(``sweep_bf16.cu``), whose operands are all bf16-rounded, with the W pass's
+``1 - h`` formed from the bf16 ``h``.  A bf16 ``Ym`` on the card is never
+widened to run another instance.  The plain versions round the same
+operands by the same rules.
+
 Each wrapper takes CPU tensors to its plain version and launches its kernel
-(``csrc/sweep_dense.cu``) for CUDA tensors, or raises; ``LAUNCHES`` counts
-the launches and ``LANES`` the lanes they carried.  The three production
+for CUDA tensors, or raises; ``LAUNCHES`` counts the launches per operand
+form (the key is the wrapper's name with the form's suffix,
+:func:`tiers.suffix`) and ``LANES`` the lanes they carried.  The three production
 passes (not ``h_terms``) also take factors with a leading lane axis,
 ``W (R, k, Mp)`` with ``H (R, k, Np)``, over the same data, as the packed
 passes do (:mod:`~nbmf_mm_tpu_torch.ops.cuda_sweep`): one launch for all
@@ -40,6 +52,7 @@ from typing import Optional
 import torch
 
 from . import cuda_sweep as cs
+from . import tiers
 
 __all__ = [
     "LAUNCHES",
@@ -54,11 +67,22 @@ __all__ = [
     "loglik_sum",
 ]
 
-LAUNCHES = {"hloss_terms": 0, "h_terms": 0, "w_terms": 0, "loglik_sum": 0}
-LANES = {"hloss_terms": 0, "w_terms": 0, "loglik_sum": 0}
+LAUNCHES = {name + tiers.suffix(form): 0
+            for name in ("hloss_terms", "h_terms", "w_terms", "loglik_sum") for form in tiers.FORMS}
+LANES = {name: 0 for name in LAUNCHES if not name.startswith("h_terms")}
 
 
 # ------------------------------------------------------------ plain versions
+def _operands(W, H, Ym, Y2, precision):
+    """``(form, rounded W, rounded H, Ym, Y2)`` of a plain version: the
+    form of ``precision`` over ``Ym``'s dtype, the factors rounded by it, and
+    bf16 data widened (exactly) to the factors' dtype."""
+    form = tiers.operand_form(precision, Ym.dtype)
+    widen = lambda A: None if A is None else A.to(W.dtype)
+    return (form, tiers.mxu_round(W, form), tiers.mxu_round(H, form), widen(Ym),
+            widen(Y2))
+
+
 def _masked_ll(Ym, yc, a, b, m_real, n_real):
     """``sum(ym log a + yc log b)`` over the real region, added in f64."""
     Mp, Np = Ym.shape
@@ -68,42 +92,58 @@ def _masked_ll(Ym, yc, a, b, m_real, n_real):
     return torch.where(rows & cols, ll, 0.0).sum(dtype=torch.float64).to(a.dtype)
 
 
-def hloss_terms_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real):
+def hloss_terms_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real, precision=None):
     """Plain PyTorch version of the dense H pass: ``(Num, Den, ll)``."""
+    form, W, H, Ym, Yc = _operands(W, H, Ym, Yc, precision)
     a, b, r = cs._ratio_terms(W, H, eps)
     yc = 1.0 - Ym if Yc is None else Yc
-    p = Ym * (b * r)
-    q = yc * (a * r)
+    p = tiers.mxu_round(Ym * (b * r), form)
+    q = tiers.mxu_round(yc * (a * r), form)
     return W @ p, W @ q, _masked_ll(Ym, yc, a, b, m_real, n_real)
 
 
-def h_terms_plain(W, H, Ym, Yc=None, *, eps):
+def h_terms_plain(W, H, Ym, Yc=None, *, eps, precision=None):
     """Plain PyTorch version of ``h_terms``: ``(Num, Den)`` without ll."""
+    form, W, H, Ym, Yc = _operands(W, H, Ym, Yc, precision)
     a, b, r = cs._ratio_terms(W, H, eps)
     yc = 1.0 - Ym if Yc is None else Yc
-    return W @ (Ym * (b * r)), W @ (yc * (a * r))
+    return (W @ tiers.mxu_round(Ym * (b * r), form),
+            W @ tiers.mxu_round(yc * (a * r), form))
 
 
-def w_terms_plain(W, H_new, Ym, Ym2=None, *, eps, n_real):
+def w_terms_plain(W, H_new, Ym, Ym2=None, *, eps, n_real, precision=None):
     """Plain PyTorch version of the dense W pass: ``T (k, Mp)``."""
-    a, b, r = cs._ratio_terms(W, H_new, eps)
+    form, Wr, H, Ym, Ym2 = _operands(W, H_new, Ym, Ym2, precision)
+    a, b, r = cs._ratio_terms(Wr, H, eps)
     if Ym2 is None:
         cols = torch.arange(Ym.shape[1], device=Ym.device)[None, :] < n_real
         Ym2 = torch.where(cols, 1.0 - Ym, 0.0)
-    p = Ym * (b * r)
-    q = Ym2 * (a * r)
+    p = tiers.mxu_round(Ym * (b * r), form)
+    q = tiers.mxu_round(Ym2 * (a * r), form)
     # Two nonnegative products; never H (P - Q)^T + sum Q (cancellation).
-    return H_new @ p.T + (1.0 - H_new) @ q.T
+    return H @ p.T + tiers.complement(H_new, form) @ q.T
 
 
-def loglik_sum_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real):
+def loglik_sum_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real, precision=None):
     """Plain PyTorch version of ``loglik_sum``: the H pass's ``ll`` alone."""
+    _, W, H, Ym, Yc = _operands(W, H, Ym, Yc, precision)
     a, b, _ = cs._ratio_terms(W, H, eps)
     yc = 1.0 - Ym if Yc is None else Yc
     return _masked_ll(Ym, yc, a, b, m_real, n_real)
 
 
 # ------------------------------------------------------------------ wrappers
+def _checked(wrapper, W, H, y, y2, bm, precision, *, batched=False):
+    """``(counter name, C entry point, lane count)`` of the form that
+    ``precision`` and ``y``'s dtype select, after the launch checks: for
+    ``hloss_terms`` on bf16 data, ``hloss_terms_bf16d`` and
+    ``nbmf_hloss_terms_dense_bf16d``."""
+    end = tiers.suffix(tiers.operand_form(precision, y.dtype))
+    lanes = cs._check_cuda_operands(wrapper + end, W, H, y, y2, bm, dense=True,
+                                    batched=batched, bf16=y.dtype == torch.bfloat16)
+    return wrapper + end, f"nbmf_{wrapper}_dense{end}", lanes
+
+
 def hloss_terms(
     W: torch.Tensor,
     H: torch.Tensor,
@@ -114,17 +154,18 @@ def hloss_terms(
     m_real: int,
     n_real: int,
     bm: int,
+    precision=None,
 ):
     """Fused dense H-update + loss pass: ``(Num, Den, ll)``, each with the
     factors' leading lane axis when they have one."""
     if W.device.type == "cpu":
         return cs.per_lane(hloss_terms_plain, W, H, Ym, Yc, eps=eps, m_real=m_real,
-                           n_real=n_real)
-    lanes = cs._check_cuda_operands("hloss_terms", W, H, Ym, Yc, bm, dense=True, batched=True)
-    out = cs._launch_hloss("nbmf_hloss_terms_dense", "hloss_terms", W, H, Ym, Yc,
-                           eps=eps, m_real=m_real, n_real=n_real, bm=bm)
-    LAUNCHES["hloss_terms"] += 1
-    LANES["hloss_terms"] += lanes or 1
+                           n_real=n_real, precision=precision)
+    name, entry, lanes = _checked("hloss_terms", W, H, Ym, Yc, bm, precision, batched=True)
+    out = cs._launch_hloss(entry, name, W, H, Ym, Yc, eps=eps, m_real=m_real,
+                           n_real=n_real, bm=bm)
+    LAUNCHES[name] += 1
+    LANES[name] += lanes or 1
     return out
 
 
@@ -136,6 +177,7 @@ def h_terms(
     *,
     eps: float = 1e-8,
     bm: int,
+    precision=None,
 ):
     """Dense H-update contractions alone: ``(Num, Den)`` (``(k, Np)`` each),
     the JAX ``h_terms``; no caller in the library, timed by the measurement
@@ -143,12 +185,12 @@ def h_terms(
     if cs.lane_count("h_terms", W, H) is not None:
         raise ValueError("h_terms: takes one pair of factors, W (k, Mp) and H (k, Np)")
     if W.device.type == "cpu":
-        return h_terms_plain(W, H, Ym, Yc, eps=eps)
-    cs._check_cuda_operands("h_terms", W, H, Ym, Yc, bm, dense=True)
+        return h_terms_plain(W, H, Ym, Yc, eps=eps, precision=precision)
+    name, entry, _ = _checked("h_terms", W, H, Ym, Yc, bm, precision)
     Mp, Np = Ym.shape
-    num, den, _ = cs._launch_hloss("nbmf_h_terms_dense", "h_terms", W, H, Ym, Yc, eps=eps,
-                                   m_real=Mp, n_real=Np, bm=bm, loss=False)
-    LAUNCHES["h_terms"] += 1
+    num, den, _ = cs._launch_hloss(entry, name, W, H, Ym, Yc, eps=eps, m_real=Mp,
+                                   n_real=Np, bm=bm, loss=False)
+    LAUNCHES[name] += 1
     return num, den
 
 
@@ -161,16 +203,17 @@ def w_terms(
     eps: float,
     n_real: int,
     bm: int,
+    precision=None,
 ) -> torch.Tensor:
     """Dense W-update contraction ``T = H P^T + (1 - H) Q^T`` (``(k, Mp)``,
     or ``(R, k, Mp)`` for factors with a leading lane axis)."""
     if W.device.type == "cpu":
-        return cs.per_lane(w_terms_plain, W, H_new, Ym, Ym2, eps=eps, n_real=n_real)
-    lanes = cs._check_cuda_operands("w_terms", W, H_new, Ym, Ym2, bm, dense=True, batched=True)
-    T = cs._launch_wterms("nbmf_w_terms_dense", "w_terms", W, H_new, Ym, Ym2,
-                          eps=eps, n_real=n_real, bm=bm)
-    LAUNCHES["w_terms"] += 1
-    LANES["w_terms"] += lanes or 1
+        return cs.per_lane(w_terms_plain, W, H_new, Ym, Ym2, eps=eps, n_real=n_real,
+                           precision=precision)
+    name, entry, lanes = _checked("w_terms", W, H_new, Ym, Ym2, bm, precision, batched=True)
+    T = cs._launch_wterms(entry, name, W, H_new, Ym, Ym2, eps=eps, n_real=n_real, bm=bm)
+    LAUNCHES[name] += 1
+    LANES[name] += lanes or 1
     return T
 
 
@@ -184,16 +227,17 @@ def loglik_sum(
     m_real: int,
     n_real: int,
     bm: int,
+    precision=None,
 ) -> torch.Tensor:
     """Masked Bernoulli log-likelihood of ``(W, H)`` over the real region (a
     0-d tensor, or ``(R,)`` for factors with a leading lane axis); on the
     card bitwise the ``ll`` of :func:`hloss_terms`."""
     if W.device.type == "cpu":
         return cs.per_lane(loglik_sum_plain, W, H, Ym, Yc, eps=eps, m_real=m_real,
-                           n_real=n_real)
-    lanes = cs._check_cuda_operands("loglik_sum", W, H, Ym, Yc, bm, dense=True, batched=True)
-    _, _, ll = cs._launch_hloss("nbmf_loglik_sum_dense", "loglik_sum", W, H, Ym, Yc,
-                                eps=eps, m_real=m_real, n_real=n_real, bm=bm, terms=False)
-    LAUNCHES["loglik_sum"] += 1
-    LANES["loglik_sum"] += lanes or 1
+                           n_real=n_real, precision=precision)
+    name, entry, lanes = _checked("loglik_sum", W, H, Ym, Yc, bm, precision, batched=True)
+    _, _, ll = cs._launch_hloss(entry, name, W, H, Ym, Yc, eps=eps, m_real=m_real,
+                                n_real=n_real, bm=bm, terms=False)
+    LAUNCHES[name] += 1
+    LANES[name] += lanes or 1
     return ll

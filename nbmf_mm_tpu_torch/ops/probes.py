@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_sweep as cs
+from . import tiers
 
 __all__ = [
     "LAUNCHES",
@@ -456,12 +457,13 @@ def frag_kernel(X, *, frag, bm=256, packed=False):
 # ----------------------------------------------- bench_diag.py::make_kernel
 def _highest(precision) -> bool:
     """make_kernel's precision: None or "default" is the TPU's one-pass bf16
-    matmul, "highest" fp32."""
-    name = "default" if precision is None else str(getattr(precision, "name", precision))
-    if name.lower() not in ("default", "highest"):
+    matmul, "highest" fp32 (the tier names of :mod:`.tiers`; the probe has
+    no "high" form)."""
+    tier = "default" if precision is None else tiers.resolve_tier(precision)
+    if tier == "high":
         raise ValueError(f"make_kernel: precision must be None, 'default' or 'highest', "
                          f"got {precision}")
-    return name.lower() == "highest"
+    return tier == "highest"
 
 
 def make_kernel_plain(kind, k, Mp, Np, bm, bn, precision):

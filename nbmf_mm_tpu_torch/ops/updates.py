@@ -15,7 +15,11 @@ denominator and the objective (``1 - Ym`` in ``mask_mode="parity"``,
 ``Ym2`` in ``"corrected"``).
 
 Matrix products run through ``torch.matmul``; the solver switches TF32 off
-on CUDA so float32 products stay IEEE fp32.
+on CUDA so float32 products stay IEEE fp32.  :func:`mm_sweep`,
+:func:`map_objective` and :func:`fold_in_w_update` take ``precision=`` as the
+JAX functions do: under ``"default"`` or ``"high"`` every operand of every
+product is rounded to bf16 or TF32 first (:mod:`~nbmf_mm_tpu_torch.ops.tiers`
+defines the tiers; the JAX package on the CPU computes every tier in fp32).
 
 Restarts and hyperparameter grids batch the factors: :func:`mm_sweep` and
 :func:`map_objective` also take ``W (R, k, m)`` with ``H (R, k, n)`` over the
@@ -31,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from .projection import project_columns_simplex_duchi
+from .tiers import complement, mxu_round, operand_form
 
 __all__ = [
     "precompute_masked_terms",
@@ -76,21 +81,30 @@ def clip_upper_interior(eps: float, dtype: torch.dtype) -> float:
     return float(torch.minimum(one - eps, below_one))
 
 
-def _h_update(W, H, Ym, Yc, alpha, beta, eps):
-    """Multiplicative Beta-factor update (reference ``_solver.py:39-47``)."""
-    WH = W.T @ H  # (m, n)
-    num = H * (W @ (Ym / (WH + eps))) + (alpha - 1.0)
-    den = (1.0 - H) * (W @ (Yc / (torch.clamp_min(1.0 - WH, 0.0) + eps))) + (beta - 1.0)
+def _h_update(W, H, Ym, Yc, alpha, beta, eps, form="f32"):
+    """Multiplicative Beta-factor update (reference ``_solver.py:39-47``);
+    the products' operands rounded as ``form`` says."""
+    Wr = mxu_round(W, form)
+    WH = Wr.T @ mxu_round(H, form)  # (m, n)
+    num = H * (Wr @ mxu_round(Ym / (WH + eps), form)) + (alpha - 1.0)
+    den = (1.0 - H) * (Wr @ mxu_round(Yc / (torch.clamp_min(1.0 - WH, 0.0) + eps), form)) + (
+        beta - 1.0)
     H_new = num / (num + den + eps)
     return torch.clamp(H_new, eps, clip_upper_interior(eps, H.dtype))
 
 
-def _w_update(W, H_new, Ym, Ym2, n_real, eps, projection):
+def _w_terms(W, H, Ym, Ym2, eps, form):
+    """``T = H (Ym / WH)^T + (1 - H) (Ym2 / (1 - WH))^T``, the W update's
+    contraction, with the products' operands rounded as ``form`` says."""
+    Hr = mxu_round(H, form)
+    WH = mxu_round(W, form).T @ Hr  # (m, n)
+    return Hr @ mxu_round(Ym / (WH + eps), form).T + complement(H, form) @ mxu_round(
+        Ym2 / (torch.clamp_min(1.0 - WH, 0.0) + eps), form).T
+
+
+def _w_update(W, H_new, Ym, Ym2, n_real, eps, projection, form="f32"):
     """Multiplicative simplex-factor update (reference ``_solver.py:50-57``)."""
-    WHn = W.T @ H_new  # (m, n)
-    T = H_new @ (Ym / (WHn + eps)).T + (1.0 - H_new) @ (
-        Ym2 / (torch.clamp_min(1.0 - WHn, 0.0) + eps)
-    ).T
+    T = _w_terms(W, H_new, Ym, Ym2, eps, form)
     W_raw = W * T  # (k, m)
     if projection == "normalize":
         W_new = W_raw / n_real
@@ -123,20 +137,24 @@ def mm_sweep(
     n_real: int,
     eps: float = 1e-8,
     projection: str = "normalize",
+    precision=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One full MM sweep: H update (old W) then W update (new H).
 
     ``n_real`` is the number of columns of the data matrix, the MM scaling
     constant of the simplex step (reference ``_solver.py:54``).  Batched
-    factors ``(R, k, m)``, ``(R, k, n)`` sweep lane by lane.
+    factors ``(R, k, m)``, ``(R, k, n)`` sweep lane by lane.  ``precision``
+    is the tier of every product.
     """
     if W.dim() == 3:
         lanes = [mm_sweep(W[r], H[r], Ym, Ym2, Yc, alpha=_lane_value(alpha, r),
                           beta=_lane_value(beta, r), n_real=n_real, eps=eps,
-                          projection=projection) for r in range(W.shape[0])]
+                          projection=projection, precision=precision)
+                 for r in range(W.shape[0])]
         return torch.stack([w for w, _ in lanes]), torch.stack([h for _, h in lanes])
-    H_new = _h_update(W, H, Ym, Yc, alpha, beta, eps)
-    W_new = _w_update(W, H_new, Ym, Ym2, n_real, eps, projection)
+    form = operand_form(precision)
+    H_new = _h_update(W, H, Ym, Yc, alpha, beta, eps, form)
+    W_new = _w_update(W, H_new, Ym, Ym2, n_real, eps, projection, form)
     return W_new, H_new
 
 
@@ -150,19 +168,23 @@ def map_objective(
     beta: float,
     n_obs: float,
     eps: float = 1e-8,
+    precision=None,
 ) -> torch.Tensor:
     """Negative MAP objective per observed entry (reference ``_solver.py:148-162``).
 
     ``loss = -(sum(Ym log(WH+eps) + Yc log(1-WH+eps))
               + (alpha-1) sum(log(H+eps)) + (beta-1) sum(log(1-H+eps))) / n_obs``
 
-    Batched factors give one loss per lane, ``(R,)``.
+    Batched factors give one loss per lane, ``(R,)``.  ``precision`` is the
+    tier of the ``WH`` product.
     """
     if W.dim() == 3:
         return torch.stack([map_objective(W[r], H[r], Ym, Yc, alpha=_lane_value(alpha, r),
-                                          beta=_lane_value(beta, r), n_obs=n_obs, eps=eps)
+                                          beta=_lane_value(beta, r), n_obs=n_obs, eps=eps,
+                                          precision=precision)
                             for r in range(W.shape[0])])
-    WH = W.T @ H
+    form = operand_form(precision)
+    WH = mxu_round(W, form).T @ mxu_round(H, form)
     log_lik = Ym * torch.log(WH + eps) + Yc * torch.log(torch.clamp_min(1.0 - WH, 0.0) + eps)
     prior_a = (alpha - 1.0) * torch.sum(torch.log(H + eps))
     prior_b = (beta - 1.0) * torch.sum(torch.log(1.0 - H + eps))
@@ -177,15 +199,14 @@ def fold_in_w_update(
     *,
     n_features: int,
     eps: float = 1e-8,
+    precision=None,
 ) -> torch.Tensor:
     """One fold-in iteration used by ``transform`` (reference ``_base.py:178-193``):
     the beta-dir W update with ``H`` held fixed.  ``Wt`` has internal layout
     ``(k, m)``; returns the updated ``(k, m)`` factor with unit column sums.
+    ``precision`` is the tier of every product.
     """
-    WHt = Wt.T @ H  # (m, n)
-    T = H @ (Ym / (WHt + eps)).T + (1.0 - H) @ (
-        Ym2 / (torch.clamp_min(1.0 - WHt, 0.0) + eps)
-    ).T
+    T = _w_terms(Wt, H, Ym, Ym2, eps, operand_form(precision))
     Wt = Wt * T / n_features
     col_sums = Wt.sum(dim=0, keepdim=True)
     return Wt / torch.where(col_sums > 0, col_sums, 1.0)

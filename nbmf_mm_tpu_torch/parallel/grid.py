@@ -62,10 +62,13 @@ def grid_solve(
     a per-cell loop can use at sizes only the packed words fit).
 
     ``dtype``, ``precision``, ``backend``, ``packed`` and ``device`` follow
-    ``solve``: float32 (default) or float64; ``None`` or ``"highest"``;
-    ``"auto"``, ``"fused"`` or ``"plain"``; ``packed=None`` streams
-    exactly-binary data (and mask) as packed words on the fused loop,
-    ``False`` streams dense, ``True`` requires the words and raises
+    ``solve``: float32 (default), float64 or ``"bfloat16"`` (the data stored
+    bf16 on the fused loop, every cell a lane over that one copy, never
+    packed; ``packed=True`` with it raises); the product tier ``None``/
+    ``"highest"``, ``"high"`` or ``"default"``, which every kernel call of
+    every cell runs; ``"auto"``, ``"fused"`` or ``"plain"``; ``packed=None``
+    streams exactly-binary data (and mask) as packed words on the fused
+    loop, ``False`` streams dense, ``True`` requires the words and raises
     otherwise; ``device`` defaults to ``"cuda"`` and raises without a card.
 
     Returns a dict of numpy arrays with a leading grid axis ``G``:
@@ -79,8 +82,8 @@ def grid_solve(
         raise ValueError(f"unknown mask_mode: {mask_mode!r}")
     if max_iter < 1:
         raise ValueError(f"grid_solve needs max_iter >= 1, got {max_iter}")
-    driver._resolve_precision(precision)
-    dtype = driver._resolve_dtype(dtype)
+    dtype, data_dtype = driver._resolve_dtype(dtype)
+    tier = driver._resolve_precision(precision, data_dtype)
     device = cs.resolve_device(device)
     k = int(n_components)
 
@@ -100,9 +103,13 @@ def grid_solve(
         raise ValueError(f"a grid takes 1 to {cs.MAX_LANES} cells as 1-D alphas and betas, "
                          f"got {a_flat.shape}")
     route = driver._resolve_backend(backend, dtype, device, True, packed, k)
+    if packed is True and data_dtype is not None:
+        raise ValueError("packed=True is incompatible with dtype='bfloat16': packing replaces "
+                         "the data stream (and is both smaller and exact)")
+    data_dtype = data_dtype if route == "fused" else None  # as solve stages it
 
-    Y = driver._to_tensor(Y, dtype, device)
-    mask = None if mask is None else driver._to_tensor(mask, dtype, device)
+    Y = driver._to_tensor(Y, data_dtype or dtype, device)
+    mask = None if mask is None else driver._to_tensor(mask, data_dtype or dtype, device)
     m, n = Y.shape
     n_obs = float(m * n) if mask is None else float(torch.count_nonzero(mask))
     if n_obs == 0.0:
@@ -130,12 +137,13 @@ def grid_solve(
             Y1, Y2 if mask_mode == "corrected" else None, Y2,
             lanes(driver._pad_last(W0, Mp)), lanes(driver._pad_last(H0, Np)),
             a_flat, b_flat, tol, n_obs,
-            packed=use_packed, eps=eps, m_real=m, n_real=n, bm=bm, **loop)
+            packed=use_packed, eps=eps, m_real=m, n_real=n, bm=bm, mxu_precision=tier, **loop)
         W, H = W[:, :, :m], H[:, :, :n]
     else:
         Ym, Ym2, Yc = precompute_masked_terms(Y, mask, mask_mode)
         W, H, losses, n_iter, final_loss, done = driver._solve_core(
-            Ym, Ym2, Yc, lanes(W0), lanes(H0), a_flat, b_flat, tol, eps, n_obs, n, **loop)
+            Ym, Ym2, Yc, lanes(W0), lanes(H0), a_flat, b_flat, tol, eps, n_obs, n,
+            precision=tier, **loop)
     host = lambda t: t.cpu().numpy()
     return {
         "alpha": a_flat,

@@ -36,6 +36,11 @@ Input that is packed already (:class:`~nbmf_mm_tpu_torch.ops.packed.PackedMatrix
 or sparse (``scipy.sparse`` data, alone or under a sparse mask) reaches the
 packed loop without a dense copy on the host or the device; every other
 routing of sparse input densifies it and gives the dense-input result.
+
+``precision`` chooses a product tier and ``dtype="bfloat16"`` stores the data
+bf16 (:mod:`~nbmf_mm_tpu_torch.ops.tiers` defines both); the loops pass the
+tier to every kernel and plain product, and the kernel wrappers pick the
+bf16-data instances from the operands' dtype.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ import torch
 
 from ..ops import cuda_sweep as cs
 from ..ops import dense_sweep as ds
+from ..ops import tiers
 from ..ops.packed import (
     PackedMatrix,
     csr_binary_canonical,
@@ -114,19 +120,26 @@ class SolverResult:
     extras: dict = field(default_factory=dict)
 
 
-def _resolve_dtype(dtype) -> torch.dtype:
-    """``None`` -> float32; accepts torch dtypes, numpy dtypes and names."""
-    if dtype is None:
-        return torch.float32
+def _dtype_name(dtype) -> str:
     if isinstance(dtype, torch.dtype):
-        name = str(dtype).removeprefix("torch.")
-    else:
-        name = str(dtype) if isinstance(dtype, str) else np.dtype(dtype).name
+        return str(dtype).removeprefix("torch.")
+    if isinstance(dtype, str):
+        return dtype
+    return getattr(dtype, "name", None) or np.dtype(dtype).name
+
+
+def _resolve_dtype(dtype):
+    """``(compute dtype, data dtype)``: ``None`` is float32; float32 and
+    float64 compute and store in themselves (data dtype ``None``);
+    ``"bfloat16"`` (a name, ``torch.bfloat16`` or a numpy spelling) is the
+    bf16-data mode, float32 compute over data stored bf16.  Accepts torch
+    dtypes, numpy dtypes and names."""
+    name = "float32" if dtype is None else _dtype_name(dtype)
     if name == "bfloat16":
-        raise _not_ported("dtype='bfloat16'", "Dense and precision routes")
+        return torch.float32, torch.bfloat16
     if name not in ("float32", "float64"):
-        raise ValueError(f"dtype must be float32 or float64, got {dtype!r}")
-    return getattr(torch, name)
+        raise ValueError(f"dtype must be float32, float64 or bfloat16, got {dtype!r}")
+    return getattr(torch, name), None
 
 
 def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device, binary: bool,
@@ -174,10 +187,13 @@ def _exactly_binary(A: Optional[torch.Tensor]) -> bool:
     return bool(((A == 0) | (A == 1)).all())
 
 
-def _resolve_precision(precision) -> None:
-    if precision is None or (isinstance(precision, str) and precision.lower() == "highest"):
-        return None
-    raise _not_ported(f"precision={precision!r}", "Dense and precision routes")
+def _resolve_precision(precision, data_dtype=None) -> str:
+    """The product tier (``ops.tiers``): ``None``, ``"default"``, ``"high"``
+    or ``"highest"`` in any case, ``None`` being ``"highest"``; other values
+    raise ``ValueError``.  The bf16-data mode forces ``"default"``, as in the
+    JAX package."""
+    tier = tiers.resolve_tier(precision)
+    return "default" if data_dtype == torch.bfloat16 else tier
 
 
 def _random_uniform_inits(seed: int, n_init: int, m: int, n: int, k: int, dtype):
@@ -247,10 +263,11 @@ def _loop_result(W, H, losses, n_iter, final_loss, done, lead):
 
 
 def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
-                max_iter: int, projection: str, verbose: int):
+                max_iter: int, projection: str, verbose: int, precision=None):
     """Plain MM loop (internal beta-dir layout: ``W0`` is ``(k, m)`` with
     unit column sums, ``H0`` is ``(k, n)``), the counterpart of the JAX
-    ``_solve_core``/``_mm_loop``, with the same positional arguments.
+    ``_solve_core``/``_mm_loop``, with the same positional arguments;
+    ``precision`` is the tier of every product.
 
     ``W0 (R, k, m)`` with ``H0 (R, k, n)`` solves ``R`` lanes in lockstep
     over the same data, ``alpha``/``beta`` floats or one value per lane; a
@@ -272,8 +289,9 @@ def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
     it, all_done = 0, False
     while it < max_iter and not all_done:
         W_new, H_new = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta, n_real=n_real,
-                                eps=eps, projection=projection)
-        loss = map_objective(W_new, H_new, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs, eps=eps)
+                                eps=eps, projection=projection, precision=precision)
+        loss = map_objective(W_new, H_new, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs, eps=eps,
+                             precision=precision)
         if verbose > 0 and not lead and it % 10 == 0:
             print(f"Iter {it}: Loss = {float(loss)}")
         # The stopping sweep's update and loss are kept (len(losses) ==
@@ -291,7 +309,7 @@ def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
 
 def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, packed: bool, eps,
                       m_real: int, n_real: int, bm: int, max_iter: int, projection: str,
-                      verbose: int):
+                      verbose: int, mxu_precision=None):
     """Shifted-loss MM loop of the H and W kernels (``_solve_core_pallas``,
     with its positional arguments).
 
@@ -304,7 +322,9 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
     route does (its ``ll`` is the dense H pass's, bitwise).
 
     ``packed`` selects the operand set: int32 words (``Y1`` packs ``Ym``)
-    or dense f32 (``Y1`` is ``Ym``).  ``Y2_h`` is the H pass's second
+    or dense f32 (``Y1`` is ``Ym``), or dense bf16 in the bf16-data mode.
+    ``mxu_precision`` is the kernels' product tier (``ops.tiers``); bf16
+    operands run the bf16-data instances whatever it says.  ``Y2_h`` is the H pass's second
     operand (corrected mode's ``Yc``, else None), ``Y2_w`` the W pass's
     (``Ym2`` in both masked modes, else None); in corrected mode they are one
     buffer.  Operands are padded to ``(Mp, Np)``; results come back padded.
@@ -326,13 +346,16 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
     h_pass = cs.hloss_terms_packed if packed else ds.hloss_terms
     w_pass = cs.w_terms_packed if packed else ds.w_terms
 
+    tier = dict(precision=mxu_precision)
+
     def hloss(W, H):
-        return h_pass(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm)
+        return h_pass(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm, **tier)
 
     def final_ll(W, H):
         if packed:
             return hloss(W, H)[2]
-        return ds.loglik_sum(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm)
+        return ds.loglik_sum(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm,
+                             **tier)
 
     def objective_from_ll(ll, H):
         H_real = H[..., :n_real]
@@ -344,7 +367,7 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
         num = H * Num + _over_factor(am1)
         den = (1.0 - H) * Den + _over_factor(bm1)
         H_new = cs.apply_col_validity(torch.clamp(num / (num + den + eps), eps, upper), n_real)
-        T = w_pass(W, H_new, Y1, Y2_w, eps=eps, n_real=n_real, bm=bm)
+        T = w_pass(W, H_new, Y1, Y2_w, eps=eps, n_real=n_real, bm=bm, **tier)
         W_raw = W * T
         if projection == "normalize":
             W_new = W_raw / n_real
@@ -422,13 +445,16 @@ def _is_scipy_sparse(A) -> bool:
 
 
 def _to_tensor(A, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """A dense operand as a tensor of the compute dtype on ``device``."""
+    """A dense operand as a tensor of ``dtype`` on ``device``: the compute
+    dtype, or bf16 for the data of the bf16-data mode, which crosses as
+    float32 and is cast on ``device`` (the float32 copy is dropped on
+    return)."""
     if isinstance(A, torch.Tensor):
         return A.to(device=device, dtype=dtype)
     if hasattr(A, "toarray"):
         A = A.toarray()
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    return torch.as_tensor(np.asarray(A, dtype=np_dtype), device=device)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return torch.as_tensor(np.asarray(A, dtype=np_dtype), device=device).to(dtype)
 
 
 def _pad(A: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -463,6 +489,9 @@ def _stage_dense(Y: torch.Tensor, mask: Optional[torch.Tensor], *, Mp: int, Np: 
     use_packed)``, words when ``Ym``/``Ym2`` are exactly binary and
     ``packed`` allows it, else the padded dense operands.  Packing needs them
     exactly 0/1 after masking, so values at unobserved entries do not matter.
+    bf16 ``Y`` and ``mask`` (the bf16-data mode, cast before this) are never
+    packed: ``Ym = Y * mask`` and ``Ym2 = (1 - Y) * mask`` are formed in bf16,
+    as in the JAX package, and padded as they are.
 
     Host input reaches this as a plain copy of the dense operands: copying
     float32 and packing on the card beat packing on the host and copying
@@ -470,13 +499,14 @@ def _stage_dense(Y: torch.Tensor, mask: Optional[torch.Tensor], *, Mp: int, Np: 
     three).
     """
     Ym, Ym2 = _masked_operands(Y, mask)
-    use_packed = packed is not False and _exactly_binary(Ym) and _exactly_binary(Ym2)
+    use_packed = (packed is not False and Y.dtype != torch.bfloat16 and _exactly_binary(Ym)
+                  and _exactly_binary(Ym2))
     stage = (lambda A: cs.pack_bits(_pad(A, Mp, Np), bm)) if use_packed else (
         lambda A: _pad(A, Mp, Np))
     return stage(Ym), None if Ym2 is None else stage(Ym2), use_packed
 
 
-def _check_packed_contract(*, orientation, mask, packed, dtype) -> None:
+def _check_packed_contract(*, orientation, mask, packed, dtype, data_dtype=None) -> None:
     """What the words of a :class:`PackedMatrix` cannot express."""
     if orientation != "beta-dir":
         raise ValueError("PackedMatrix input supports orientation='beta-dir' only "
@@ -485,6 +515,9 @@ def _check_packed_contract(*, orientation, mask, packed, dtype) -> None:
         raise ValueError("PackedMatrix input does not take a separate mask")
     if packed is False:
         raise ValueError("packed=False contradicts a PackedMatrix input")
+    if data_dtype == torch.bfloat16:
+        raise ValueError("PackedMatrix input requires float32 compute (the packed kernels "
+                         "are float32; got dtype='bfloat16')")
     if dtype != torch.float32:
         raise ValueError("PackedMatrix input requires float32 compute (the packed kernels "
                          f"are float32; got dtype={dtype})")
@@ -602,9 +635,27 @@ def solve(
       host numpy arrays, ``all_W (n_init, m, k)``, ``all_H (n_init, k, n)``,
       ``all_n_iter``, ``all_losses (n_init, max_iter)`` and ``all_converged``
       (also under ``device_results``);
-    - ``dtype``: float32 (default) or float64; ``precision``: ``None`` or
-      ``"highest"`` (IEEE fp32 products: TF32 is off inside the call and the
-      caller's settings are restored on exit);
+    - ``dtype``: float32 (default), float64, or ``"bfloat16"`` (also
+      ``torch.bfloat16`` or a numpy spelling): the bf16-data mode of the JAX
+      package.  Factors, updates and losses stay float32; only the data
+      operands ``Ym``, ``Ym2``, ``Yc`` are stored bf16 on the device, cast
+      before they are masked and padded, and the kernels round every product
+      operand to bf16 (the tier is ``"default"``).  It is never packed, even
+      for binary data; ``packed=True`` or a ``PackedMatrix`` with it raise
+      ``ValueError``.  The plain loop keeps the data float32 and runs its
+      products at ``"default"``.  ``extras["data_dtype"]`` records it;
+    - ``precision``: the product tier (``ops.tiers`` defines them).
+      ``None`` or ``"highest"``: IEEE fp32 products (TF32 is off inside the
+      call and the caller's settings are restored on exit).  ``"high"``:
+      each operand of each product rounded to TF32 (10-bit mantissa,
+      nearest, ties away from zero).  ``"default"``: each operand rounded to
+      bf16 (nearest even).  Products accumulate in fp32 in every tier, on
+      every route: the kernels, their plain versions and the plain loop.
+      ``None`` stays ``"highest"`` here (the JAX package's Pallas path
+      defaults to DEFAULT).  The rounding is explicit, so a tier gives the
+      same numbers on the CPU as on the card up to summation order, where the
+      JAX package on the CPU computes every tier in fp32.
+      ``extras["precision"]`` records a tier other than ``"highest"``;
     - ``device``: an explicit ``torch.device`` (default ``"cuda"``, which
       raises on a machine without a GPU; nothing moves to the CPU unasked);
     - ``backend``: ``"auto"``, ``"fused"`` (the kernel loop; CPU tensors go
@@ -619,8 +670,7 @@ def solve(
       ``device``; only ``n_iter``, ``converged`` and the safeguard's drift
       are read back to the host.
 
-    ``mesh``, ``dtype="bfloat16"`` and precisions ``"default"``/``"high"``
-    raise ``NotImplementedError``.
+    ``mesh`` raises ``NotImplementedError``.
     """
     if orientation not in _ORIENTATIONS:
         raise ValueError(f"orientation must be one of {_ORIENTATIONS}, got {orientation!r}")
@@ -632,8 +682,8 @@ def solve(
         raise ValueError(f"n_init must be >= 1, got {n_init}")
     if mesh is not None:
         raise _not_ported("mesh", "Multi-GPU")
-    _resolve_precision(precision)
-    dtype = _resolve_dtype(dtype)
+    dtype, data_dtype = _resolve_dtype(dtype)
+    tier = _resolve_precision(precision, data_dtype)
     device = cs.resolve_device(device)
     k = int(n_components)
     if type(Y).__name__ == "PackedMatrix" and not isinstance(Y, PackedMatrix):
@@ -642,21 +692,31 @@ def solve(
             "nbmf_mm_tpu_torch.utils.interop.packed_from_reference"
         )
     if isinstance(Y, PackedMatrix):
-        _check_packed_contract(orientation=orientation, mask=mask, packed=packed, dtype=dtype)
+        _check_packed_contract(orientation=orientation, mask=mask, packed=packed, dtype=dtype,
+                               data_dtype=data_dtype)
     route = _resolve_backend(backend, dtype, device, True, packed, k)
+    if packed is True and data_dtype is not None:
+        raise ValueError("packed=True is incompatible with dtype='bfloat16': packing replaces "
+                         "the data stream (and is both smaller and exact)")
+    # The data is stored bf16 for the kernels; the plain loop keeps it in the
+    # compute dtype and runs its products at DEFAULT (the JAX package's XLA
+    # emulation of the mode).
+    data_dtype = data_dtype if route == "fused" else None
 
     t_start = time.time()
     sparse_masked = False  # Y and mask as canonical binary CSRs
     if _is_scipy_sparse(Y):
-        eligible = (orientation == "beta-dir" and packed is not False
+        eligible = (orientation == "beta-dir" and packed is not False and data_dtype is None
                     and dtype == torch.float32 and route == "fused")
         Y, mask, sparse_masked = _route_sparse(Y, mask, eligible=eligible, packed=packed,
                                                device=device)
     words = _packed_words(Y, route, device) if isinstance(Y, PackedMatrix) else None
     if words is None and not sparse_masked:
-        Y = _to_tensor(Y, dtype, device)
+        # bf16 data is cast before it is masked or padded, so that no
+        # full-size float32 copy lingers.
+        Y = _to_tensor(Y, data_dtype or dtype, device)
         if mask is not None:
-            mask = _to_tensor(mask, dtype, device)
+            mask = _to_tensor(mask, data_dtype or dtype, device)
 
     transposed = orientation == "dir-beta"
     if transposed:
@@ -741,13 +801,13 @@ def solve(
                 raise ValueError("packed=True requires exactly binary data (and mask)")
         del Y, mask, words
         core = partial(_solve_core_fused, packed=use_packed, eps=eps, m_real=m, n_real=n, bm=bm,
-                       **loop)
+                       mxu_precision=tier, **loop)
         data = (Y1, Y2 if mask_mode == "corrected" else None, Y2)
         inits = (_pad_last(W0, Mp), _pad_last(H0, Np))
         hypers = (alpha, beta, tol, n_obs)
     else:
         use_packed = False
-        core = partial(_solve_core, **loop)
+        core = partial(_solve_core, precision=tier, **loop)
         data = precompute_masked_terms(Y, mask, mask_mode)
         inits = (W0, H0)
         hypers = (alpha, beta, tol, eps, n_obs, n)
@@ -780,11 +840,23 @@ def solve(
         best_restart=best,
         all_final_losses=all_final,
         seed=seed,
-        extras={"backend": route, "packed": use_packed},
+        extras=_extras(route, use_packed, tier, data_dtype),
     )
     if all_results is not None:
         _attach_all_results(result, all_results, m=m, n=n, transposed=transposed)
     return result
+
+
+def _extras(route: str, packed: bool, tier: str, data_dtype) -> dict:
+    """``SolverResult.extras``: the loop and whether it streamed words, then
+    the product tier and the stored data dtype where they are not the
+    defaults (``"highest"``, the compute dtype)."""
+    extras = {"backend": route, "packed": packed}
+    if tier != "highest":
+        extras["precision"] = tier
+    if data_dtype is not None:
+        extras["data_dtype"] = str(data_dtype).removeprefix("torch.")
+    return extras
 
 
 def _attach_all_results(result: SolverResult, all_results, *, m: int, n: int,

@@ -27,6 +27,10 @@ from pathlib import Path
 
 from ..ops import _build
 
+# Lines of cuobjdump's output that belong to no kernel: the fatbin and cubin
+# headers between one object's kernels and the next object's.
+_HEADERS = ("...", "Fatbin", "code for", "=====", "arch =", "code version =", "host =",
+            "compile_size =")
 # nvcc's tag for an anonymous namespace: _GLOBAL__N__<hash>_<len>_<file>_<hash>
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_[0-9a-f]{8}")
 
@@ -49,7 +53,7 @@ def parse_sass(text: str) -> dict:
             if name:
                 out[name] = "\n".join(body)
             name, body = m.group(1), []
-        elif name and line.strip() and not line.lstrip().startswith(("...", "Fatbin", "code for")):
+        elif name and line.strip() and not line.lstrip().startswith(_HEADERS):
             body.append(" ".join(line.split()))  # cuobjdump pads to the file's widest line
     if name:
         out[name] = "\n".join(body)

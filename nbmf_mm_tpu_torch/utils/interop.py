@@ -138,7 +138,7 @@ def restart_inits_from_reference(W0_ext, H0, dtype=None, device="cuda"):
     ``H0 (n_init, k, n)``, contiguous, in ``dtype`` (float32 by default).
     The fused core takes them zero-padded to the planned geometry.
     """
-    dtype = driver._resolve_dtype(dtype)
+    dtype, _ = driver._resolve_dtype(dtype)
     device = cs.resolve_device(device)
     W0_ext = torch.tensor(np.asarray(W0_ext), dtype=dtype)
     H0 = torch.tensor(np.asarray(H0), dtype=dtype)

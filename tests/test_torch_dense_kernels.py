@@ -169,7 +169,7 @@ def test_cpu_tensors_do_not_count_launches():
     ds.h_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), eps=EPS, bm=32)
     ds.w_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), _t(c["Ym2"]), eps=EPS, n_real=250, bm=32)
     ds.loglik_sum(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), eps=EPS, m_real=240, n_real=250, bm=32)
-    assert ds.LAUNCHES == {"hloss_terms": 0, "h_terms": 0, "w_terms": 0, "loglik_sum": 0}
+    assert set(ds.LAUNCHES.values()) == {0}
 
 
 def test_wrappers_reject_other_devices():

@@ -17,7 +17,9 @@ import nbmf_mm_tpu_torch as port
 from nbmf_mm_tpu.solver.driver import SolverResult as RefSolverResult
 from nbmf_mm_tpu_torch.models import estimator as port_estimator
 from nbmf_mm_tpu_torch.models import serving as port_serving
+from nbmf_mm_tpu_torch.ops import _build, tiers
 from nbmf_mm_tpu_torch.ops import cuda_sweep as cs
+from nbmf_mm_tpu_torch.ops import dense_sweep as ds
 from nbmf_mm_tpu_torch.solver import driver as port_driver
 from nbmf_mm_tpu_torch.solver.driver import _resolve_backend, ieee_fp32_products
 
@@ -284,6 +286,34 @@ def test_sources_cover_the_parallel_package():
     assert any(p.name == "chip_smoke.py" for p in _port_sources())
 
 
+def test_sources_cover_the_tier_module():
+    assert any(p.name == "tiers.py" and p.parent.name == "ops" for p in _port_sources())
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: f"{p.parent.name}/{p.name}")
 def test_no_port_source_imports_jax_or_the_jax_package(path):
     assert not {"jax", "jaxlib", "nbmf_mm_tpu", "nbmf_mm_compat"} & _imported_roots(path)
+
+
+# ------------------------- the operand forms' entry points and the device
+def test_every_operand_form_entry_point_has_a_source_and_a_counter():
+    """Each form's C entry point in ``_SIGNATURES`` is defined by a source
+    of ``csrc/`` (through the form macros, which the build compiles one
+    ``nvcc`` each) and counted under its own name."""
+    csrc = pathlib.Path(_build.__file__).resolve().parent / "csrc"
+    sources = {p.name: p.read_text() for p in csrc.glob("*.cu")}
+    forms = [name for name in _build._SIGNATURES if name.rpartition("_")[2] in tiers.FORMS]
+    assert len(forms) == 2 * 2 + 4 * 3
+    for name in forms:
+        base, _, form = name.rpartition("_")
+        macro = "NBMF_PACKED_FORM" if base.endswith("_packed") else "NBMF_DENSE_FORM"
+        assert sum(f"{macro}(_{form}," in text for text in sources.values()) == 1, name
+        counter = name.removeprefix("nbmf_").replace("_dense", "")
+        assert counter in (cs.LAUNCHES if base.endswith("_packed") else ds.LAUNCHES), counter
+
+
+@pytest.mark.parametrize("entry", ["solve", "NBMF", "grid_solve", "FoldInServer",
+                                   "fold_in_fused", "pack_matrix", "pack_matrix_chunked",
+                                   "pack_matrix_sparse"])
+def test_entry_points_default_to_the_card(entry):
+    assert inspect.signature(getattr(port, entry)).parameters["device"].default == "cuda"

@@ -203,16 +203,26 @@ def test_grid_solve_rejects_unequal_zip_lengths_and_a_bad_pair_mode():
 
 
 @pytest.mark.parametrize("kwargs, exc, match", [
-    (dict(dtype="bfloat16"), NotImplementedError, "ROADMAP"),
-    (dict(precision="default"), NotImplementedError, "ROADMAP"),
-    (dict(precision="high"), NotImplementedError, "ROADMAP"),
+    # Ported since: the bf16-data mode and the reduced tiers run their grid.
+    (dict(dtype="bfloat16"), None, "default"),
+    (dict(precision="default"), None, "default"),
+    (dict(precision="high"), None, "high"),
     (dict(mask_mode="both"), ValueError, "mask_mode"),
     (dict(max_iter=0), ValueError, "max_iter"),
     (dict(backend="pallas"), ValueError, "backend"),
     (dict(mask=np.zeros((30, 24))), ValueError, "no observed entries"),
 ], ids=["bfloat16", "precision-default", "precision-high", "mask_mode", "max_iter-0",
         "backend", "empty-mask"])
-def test_grid_solve_rejects_what_it_does_not_take(kwargs, exc, match):
+def test_grid_solve_rejects_what_it_does_not_take(kwargs, exc, match, monkeypatch):
+    if exc is None:
+        tiers_run = []
+        core = pd._solve_core_fused
+        monkeypatch.setattr(pd, "_solve_core_fused", lambda *a, **kw: (
+            tiers_run.append(kw["mxu_precision"]), core(*a, **kw))[1])
+        g = grid_solve(_toy(), 3, [1.0], [1.0], max_iter=5, backend="fused",
+                       **{"device": "cpu", **kwargs})
+        assert tiers_run == [match] and np.isfinite(g["final_loss"]).all()
+        return
     with pytest.raises(exc, match=match):
         grid_solve(_toy(), 3, [1.0], [1.0], **{"device": "cpu", **kwargs})
 

@@ -38,6 +38,7 @@ def test_import_leaves_jax_out():
         "import sys; sys.path.insert(0, %r); import nbmf_mm_tpu_torch, "
         "nbmf_mm_tpu_torch.ops.cuda_sweep, nbmf_mm_tpu_torch.ops.dense_sweep, "
         "nbmf_mm_tpu_torch.ops._build, nbmf_mm_tpu_torch.ops.packed, "
+        "nbmf_mm_tpu_torch.ops.tiers, "
         "nbmf_mm_tpu_torch.models.serving, "
         "nbmf_mm_tpu_torch.utils.interop, nbmf_mm_tpu_torch.ops.probes, "
         "nbmf_mm_tpu_torch.utils.profiling, nbmf_mm_tpu_torch.tools.bench_true, "
@@ -77,13 +78,26 @@ def test_cuda_device_raises_without_card():
         nbt.NBMF(n_components=2, max_iter=3).fit(_binary())
 
 
+@pytest.mark.parametrize("kwargs", [dict(dtype="bfloat16"), dict(precision="default"),
+                                    dict(precision="high")], ids=["bfloat16", "default", "high"])
+def test_tiers_and_bf16_stay_on_the_card_unless_asked(kwargs):
+    """A tier or the bf16-data mode does not move a solve to the CPU."""
+    _require_no_card()
+    with pytest.raises(RuntimeError, match="cuda"):
+        nbt.solve(_binary(), 2, max_iter=3, **kwargs)
+    with pytest.raises(RuntimeError, match="cuda"):
+        nbt.grid_solve(_binary(), 2, [1.0], [1.0], max_iter=3, **kwargs)
+    with pytest.raises(RuntimeError, match="cuda"):
+        nbt.FoldInServer(np.full((2, 16), 0.5), **kwargs)
+
+
 def test_fused_on_cpu_uses_plain_versions():
     cs.LAUNCHES.update(hloss_terms_packed=0, w_terms_packed=0)
     res = nbt.solve(_binary(), 2, max_iter=5, random_state=0, backend="fused",
                     dtype="float64", device="cpu")
     assert res.extras["backend"] == "fused"
     assert res.n_iter == 5 and len(res.losses) == 5
-    assert cs.LAUNCHES == {"hloss_terms_packed": 0, "w_terms_packed": 0}
+    assert set(cs.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize(
@@ -137,6 +151,12 @@ def test_options_left_out_raise(kwargs):
     if kwargs == dict(device_results=True):  # ported since: tensors come back
         res = nbt.solve(_binary(), 2, max_iter=2, device="cpu", **kwargs)
         assert all(isinstance(t, torch.Tensor) for t in (res.W, res.H, res.losses))
+        return
+    if "mesh" not in kwargs:  # ported since: the bf16-data mode and the tiers run
+        res = nbt.solve(_binary().astype(np.float32), 2, max_iter=2, device="cpu",
+                        backend="fused", **kwargs)
+        assert res.extras["precision"] == kwargs.get("precision", "default")
+        assert np.isfinite(res.losses).all() and res.W.dtype == np.float32
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nbt.solve(_binary(), 2, max_iter=2, device="cpu", **kwargs)

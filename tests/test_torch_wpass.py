@@ -295,6 +295,17 @@ def test_sass_diff_parses_kernels_and_drops_path_tags():
     assert "MOV R1" in a["_ZN41_GLOBAL__N__probes_cu12hloss_kernelEv"]
 
 
+def test_sass_diff_keeps_the_next_objects_header_out_of_the_last_kernel():
+    """A library of several objects: the headers that open the next object
+    do not belong to the kernel listed before them."""
+    from nbmf_mm_tpu_torch.tools.sass_diff import parse_sass
+
+    header = ("\nFatbin elf code:\n================\narch = sm_90a\ncode version = [1,7]\n"
+              "host = linux\ncompile_size = 64bit\n\n\tcode for sm_90a\n")
+    kernel = "\t\tFunction : sum_splits_kernel\n        /*0000*/  EXIT ;\n        ..........\n"
+    assert parse_sass(header + kernel) == parse_sass(header + kernel + header)
+
+
 def test_wpass_tune_variants_edit_the_current_source():
     """The tuning tool's text edits still match the kernel source, and each
     variant keeps its braces balanced."""
