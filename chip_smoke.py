@@ -94,9 +94,11 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import re
 import subprocess
 import time
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -127,6 +129,15 @@ TOL_FOLD_IN = 1e-4
 # add per element for the reductions, over this run's shapes.
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
+# The tensor-core peaks of the same data sheet (dense): the bound of a form
+# whose every product operand is bf16 (precision "default", bf16 data: the
+# wgmma kernels of sweep_wgmma.cuh) or TF32 (precision "high"), the rate at
+# which the card could do that form's products, whatever its kernel runs on.
+BF16_TC_PEAK = 989e12
+TF32_TC_PEAK = 495e12
+# The kernels of sweep_wgmma.cuh (the passes and their bf16 staging), by
+# name, for printing their registers and spills.
+WGMMA_KERNELS = r"wgmma_kernel|stage_[wh]_bf16_kernel"
 # Phase 3's edge shapes of the W pass's column split (label, (m, n), k): the
 # serving chunks, ranks across every instance, n neither a multiple of the
 # column tile nor of a chunk (n_real inside the last tile), one word row in a
@@ -210,13 +221,14 @@ LANE_EDGE_COUNTS = (1, 3)
 # (bf16d), each kernel's counter and entry point named with the form's suffix.
 TIER_FORMS = ("bf16r", "tf32r", "bf16d")
 FORM_PRECISION = {"bf16r": "default", "tf32r": "high", "bf16d": "default"}
+FORM_PEAK = {"bf16r": BF16_TC_PEAK, "tf32r": TF32_TC_PEAK, "bf16d": BF16_TC_PEAK}
 TIER_BASES = ("hloss_terms_packed", "w_terms_packed", "hloss_terms", "w_terms", "loglik_sum",
               "h_terms")
 
 
 def tier_source(base: str, form: str) -> str:
     if base.endswith("_packed"):
-        return "sweep_tiers_packed.cu"
+        return "sweep_wgmma_packed.cu" if form == "bf16r" else "sweep_tiers_packed.cu"
     return "sweep_bf16.cu" if form == "bf16d" else f"sweep_tiers_{form}.cu"
 
 
@@ -264,10 +276,38 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by) of work of ``flops`` operations moving ``nbytes``."""
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def bound(flops: float, nbytes: float, peak: float = FP32_PEAK):
+    """(bound_ms, bound_by) of work of ``flops`` operations at ``peak`` per
+    second moving ``nbytes``."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_resources(log: str, match: str) -> dict:
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
+    from ptxas -v's lines in a build log, for the kernels whose names match
+    the regex ``match`` (demangled by c++filt where it is installed, else
+    the mangled names), each instance once."""
+    out, name, spills = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), ""
+        elif "spill stores" in line:
+            spills = ", ".join(part.strip() for part in line.split(",")[1:])
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[name] = f"{regs} registers, {spills}"
+    names = list(out)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True, text=True,
+                               timeout=60, check=True).stdout.splitlines()
+        if len(plain) == len(out):
+            names = [re.sub(r"^(void )?\(anonymous namespace\)::", "", n) for n in plain]
+            names = [n[:n.rfind(">(") + 1] or n for n in names]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return {n: used for n, used in zip(names, out.values()) if re.search(match, n)}
 
 
 def tensor_bytes(*tensors) -> int:
@@ -1732,6 +1772,32 @@ def check_tier_kernels(label, Y, soft, k, card, cs, ds, errors):
     check(same, f"tiers {label}: a bitwise equality of the forms failed")
 
 
+def check_wgmma_staging(card, cs):
+    """The bf16 copies the tensor-core forms stage (W in bit-plane order, H,
+    and 1 - H by each form's rule; ``cs.stage_bf16``) against their plain
+    versions on the same values, bitwise: at the headline, at lastfm, at
+    ranks that pad k (17, 200, 256) and at one word row, with H spread over
+    [-0.3, 1.4] so that 1 - h needs rounding, and with 4 lanes."""
+    h = HEADLINE
+    shapes = [((h["m"], h["n"]), h["k"], 1), ((1226, 285), PAPER_LASTFM_K, 1),
+              ((1000, 1234), 17, 1), ((1000, 1234), 200, 1), ((1000, 1234), 256, 4),
+              ((20, 1000), 8, 1)]
+    same = True
+    for (m, n), k, lanes in shapes:
+        bm, Mp, Np = cs.plan_packing(m, n)
+        pairs = [factors(m, n, k, Mp, Np, 40 + r) for r in range(lanes)]
+        W = torch.stack([w for w, _ in pairs]) if lanes > 1 else pairs[0][0]
+        H = (torch.stack([x for _, x in pairs]) if lanes > 1 else pairs[0][1]) * 1.7 - 0.3
+        for form in cs.WGMMA_FORMS:
+            got = cs.stage_bf16(W, H, bm, form)
+            want = cs.stage_bf16(W.cpu(), H.cpu(), bm, form)
+            same &= all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    print(f"tiers: the bf16 staging of the tensor-core forms (W bit-plane, H, 1 - H by each "
+          f"form's rule) at {len(shapes)} shapes, k 8 to 256, lanes 1 and 4, == plain bitwise "
+          f"{same} [{card}]", flush=True)
+    check(same, "tiers: a bf16 staging copy differs from its plain version")
+
+
 def check_tier_lanes(X, P, k, card, cs, ds, errors):
     """Each form's five production kernels with ``LANES_CHECKED`` lanes at the
     headline, in all three mask modes: every lane == the unbatched kernel
@@ -2050,9 +2116,12 @@ def tier_measurement_path(card, cs, ds):
 
 def time_tier_kernels(X, P, k, times, card, cs, ds):
     """ms/call of each form at the headline beside its float32 instance and
-    its bound (the float32 instance's operations; bf16 data halves the data
-    bytes): K1/K2 forms on the binary matrix's words, the dense forms on
-    ``P`` (unmasked)."""
+    its bound at the form's tensor-core peak (``FORM_PEAK``: the float32
+    instance's operations at 989 TFLOP/s for the bf16 forms, 495 for TF32;
+    bf16 data halves the data bytes), with phase 7's time of the vpu_only
+    probe (the ratio and log chain alone at 10240^2) beside it as the floor
+    of the elementwise work: K1/K2 forms on the binary matrix's words, the
+    dense forms on ``P`` (unmasked)."""
     o = operands(X, k, "unmasked", 2, cs)
     d = operands(P, k, "unmasked", 2, cs, weighted=True)
     m, n = o["m"], o["n"]
@@ -2063,6 +2132,7 @@ def time_tier_kernels(X, P, k, times, card, cs, ds):
     products = {"hloss_terms": 6, "w_terms": 6, "loglik_sum": 2, "h_terms": 6}
     f32 = {**{name: times[name]["ms"] for name in PATH_KERNELS},
            "h_terms": cuda_ms(lambda: ds.h_terms(W, H, d["Ym"], eps=EPS, bm=o["bm"]))}
+    vpu_ms = times["make_kernel"]["variants"]["vpu_only"]["ms"]
     out = {}
     for form in TIER_FORMS:
         calls = {**tier_calls(o, form, cs, ds),
@@ -2075,13 +2145,15 @@ def time_tier_kernels(X, P, k, times, card, cs, ds):
                 d["Ym"].to(torch.bfloat16) if form == "bf16d" else d["Ym"])
             ms, plain_ms = cuda_ms(lambda: fn(W, H)), cuda_ms(lambda: plain(W, H))
             bound_ms, bound_by = bound(products[kind] * mnk,
-                                       factors_b + tensor_bytes(data) + out_b[kind])
+                                       factors_b + tensor_bytes(data) + out_b[kind], FORM_PEAK[form])
             out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=None)
             print(f"timing {name} at {m}x{n} k={k}: kernel {ms:.4f} ms/call beside "
                   f"{f32[base]:.4f} for the float32 instance ({100 * (ms / f32[base] - 1):+.1f}%), "
                   f"plain {plain_ms:.4f} ms/call; {100 * bound_ms / ms:.1f}% of its "
-                  f"{bound_ms:.4f} ms bound ({bound_by}) [{card}]", flush=True)
+                  f"{bound_ms:.4f} ms bound ({bound_by}, {FORM_PEAK[form] / 1e12:g} TFLOP/s); "
+                  f"the elementwise chain alone (vpu_only probe) {vpu_ms:.4f} ms [{card}]",
+                  flush=True)
     return out
 
 
@@ -2092,6 +2164,7 @@ def tiers_phase(NBMF, solve, FoldInServer, grid_solve, X, P, lastfm, lastfm_soft
     over the phase's paths with the counters set to 0 before each and read
     after it (h_terms' on the measurement path)."""
     k = HEADLINE["k"]
+    check_wgmma_staging(card, cs)
     check_tier_kernels("headline", X, P, k, card, cs, ds, errors)
     check_tier_kernels("lastfm", lastfm, lastfm_soft, PAPER_LASTFM_K, card, cs, ds, errors)
     check_tier_kernels("one-word-row", tiny, tiny * 0.5 + 0.25, 4, card, cs, ds, errors)
@@ -2166,6 +2239,16 @@ def main() -> None:
         if ("registers" in line or "nvcc" in line
                 or "spill" in line and "0 bytes spill stores" not in line):
             print("  ptxas:" if "registers" in line or "spill" in line else " ", line.strip())
+    for name, used in kernel_resources(_build.build_log(), WGMMA_KERNELS).items():
+        print(f"  ptxas, tensor-core kernel {name}: {used}", flush=True)
+    from nbmf_mm_tpu_torch.tools.sass_diff import kernels_sass
+
+    hgmma = {name: code.count("HGMMA") for name, code in
+             kernels_sass(Path(_build.load_library()._name)).items() if "wgmma_kernel" in name}
+    print(f"  SASS: {len(hgmma)} tensor-core pass instances, HGMMA instructions in each "
+          f"{min(hgmma.values(), default=0)} to {max(hgmma.values(), default=0)}", flush=True)
+    check(len(hgmma) > 0 and min(hgmma.values()) > 0,
+          "a tensor-core pass has no HGMMA instruction in its SASS")
 
     # ------------------------------------------- 3. kernels against plain
     X = headline_matrix()

@@ -52,17 +52,29 @@ _SIGNATURES = {
     # dtype, frag, device, stream
     "nbmf_probe_reduce": [_P] * 6 + [_I] * 8 + [_P],
 }
-# The operand forms of the production passes (ops/tiers.py: the precision
-# tiers in sweep_tiers_*.cu, the bf16-data mode in sweep_bf16.cu) take the
-# f32 entry points' signatures, the form's suffix on the name.
-_SIGNATURES.update(
-    {f"nbmf_{name}_{form}": _SIGNATURES[f"nbmf_{name}"]
-     for name, forms in (("hloss_terms_packed", ("bf16r", "tf32r")),
-                         ("w_terms_packed", ("bf16r", "tf32r")),
-                         *((f"{dense}_dense", ("bf16r", "tf32r", "bf16d"))
-                           for dense in ("hloss_terms", "w_terms", "loglik_sum", "h_terms")))
-     for form in forms}
-)
+# The operand forms of the production passes (ops/tiers.py), the form's
+# suffix on the name.  The TF32 forms (sweep_tiers_tf32r.cu,
+# sweep_tiers_packed.cu) take the f32 entry points' signatures.  The bf16
+# forms on the tensor cores (sweep_wgmma.cuh: sweep_wgmma_packed.cu,
+# sweep_tiers_bf16r.cu, sweep_bf16.cu) take the bf16 copies of the factors
+# as scratch (cuda_sweep.plan_wgmma): the H passes wst, hst in place of
+# wperm, the W pass wst, hst, hcst after part.
+_PASSES = ("hloss_terms_packed", "w_terms_packed",
+           *(f"{dense}_dense" for dense in ("hloss_terms", "w_terms", "loglik_sum", "h_terms")))
+_SIGNATURES.update({f"nbmf_{name}_tf32r": _SIGNATURES[f"nbmf_{name}"] for name in _PASSES})
+
+
+def _with_bf16_copies(name):
+    sig = _SIGNATURES[f"nbmf_{name}"]
+    at, added = (6, 3) if name.startswith("w_terms") else (sig.index(_I), 1)
+    return sig[:at] + [_P] * added + sig[at:]
+
+
+_SIGNATURES.update({f"nbmf_{name}_{form}": _with_bf16_copies(name)
+                    for name in _PASSES for form in ("bf16r", "bf16d")
+                    if not (form == "bf16d" and name.endswith("_packed"))})
+# W, H, wst, hst, hcst, k, Mp, Np, bm, hc_of_rounded, lanes, device, stream
+_SIGNATURES["nbmf_stage_bf16"] = [_P] * 5 + [_I] * 7 + [_P]
 # The H- and W-pass probes of probes.cu take the production signatures
 # (with lanes == 1).
 _SIGNATURES.update(

@@ -11,8 +11,7 @@
 // both take a per-entry policy E (struct Sweep below); the defaults are the
 // production passes, and the measurement probes of probes.cu set the rest.
 // Y = int32_t reads bit-packed words, Y = float reads dense (Mp, Np) f32
-// operands and Y = __nv_bfloat16 dense bf16 ones (the bf16-data mode,
-// converted to f32 in registers).  The loaders yield the 32 data rows of word row w in the same
+// operands.  The loaders yield the 32 data rows of word row w in the same
 // bit-plane order (row0 + b*bmw for bit b), so the two instances share the
 // block split, the register accumulators and the fixed-order sums, and on
 // exactly-binary operands the dense instance gives the packed one's outputs
@@ -75,10 +74,11 @@
 //     into a second buffer while the current tile computes;
 //   - registers: __launch_bounds__ keeps two 256-thread blocks on an SM
 //     (128 registers, no spills, by ptxas -v) up to k = 128.
-// fp32 FMA on the CUDA cores throughout.  The precision tiers and the
-// bf16-data mode (ops/tiers.py defines them) are instances whose policy
-// rounds every operand of every product to bf16 or TF32 before that FMA
-// (Sweep::kRound): the same loops, the same sums, plus the roundings.
+// fp32 FMA on the CUDA cores throughout.  The precision tier "high"
+// (ops/tiers.py) is an instance whose policy rounds every operand of every
+// product to TF32 before that FMA (Sweep::kRound): the same loops, the same
+// sums, plus the roundings.  The bf16 forms (precision "default" and the
+// bf16-data mode) run on the tensor cores (sweep_wgmma.cuh).
 //
 // Lanes: every kernel here takes a leading lane axis R on the factors from
 // its grid (blockIdx.z of the two passes, blockIdx.y of the small kernels
@@ -134,16 +134,16 @@ struct Sweep {
     // T2 = H.(WH+1)^T written as rows k..2k-1 of T.
     static constexpr int kWForm = 0;
     // Round every operand of every product before the fp32 FMA (sums stay
-    // fp32): kBf16 to bf16, nearest even (the TPU's one-pass bf16 matmul:
-    // precision DEFAULT, and every product of the bf16-data mode); kTf32 to
-    // TF32, nearest with ties away from zero (precision HIGH).  The probes
-    // round W, H and the tile values; the production forms also p, q and the
+    // fp32): kBf16 to bf16, nearest even (the bf16 probes); kTf32 to TF32,
+    // nearest with ties away from zero (precision HIGH).  The probes round
+    // W, H and the tile values; the production TF32 form also p, q and the
     // W pass's 1 - h.
     static constexpr Round kRound = Round::kNone;
     // The W pass's 1 - h operand under a rounding: false round(1 - h), the
     // MXU rounding the f32 difference (a tier over f32 data); true
     // round(1 - round(h)), the TPU kernel forming 1.0 - h in bf16 from the
-    // bf16 h (the bf16-data mode, pallas_sweep.py:379).
+    // bf16 h (the bf16-data mode, pallas_sweep.py:379; its production form
+    // runs on the tensor cores, sweep_wgmma.cuh).
     static constexpr bool kHcOfRounded = false;
 };
 
@@ -160,18 +160,20 @@ __device__ __forceinline__ float round_tf32(float x) {
     return __uint_as_float((u + 0x1000u) & ~0x1fffu);
 }
 
-// The production passes under a precision tier or in the bf16-data mode
-// (ops/tiers.py): every operand of every product rounded, W, H, p, q and the
-// W pass's 1 - h (by the rule HC_OF_ROUNDED).  Instantiated in
-// sweep_tiers_*.cu and sweep_bf16.cu.
+// The production passes under a precision tier (ops/tiers.py): every
+// operand of every product rounded, W, H, p, q and the W pass's 1 - h (by
+// the rule HC_OF_ROUNDED).  Instantiated for "high" (TF32) in
+// sweep_tiers_tf32r.cu and sweep_tiers_packed.cu; the bf16 forms (precision
+// "default" and the bf16-data mode) run on the tensor cores instead
+// (sweep_wgmma.cuh).  HC_OF_ROUNDED stays a parameter, false for TF32, so
+// that the TF32 instances keep the names (and the SASS) they had when the
+// bf16-data form was an instance here.
 template <Round R, bool HC_OF_ROUNDED = false>
 struct Tier : Sweep {
     static constexpr Round kRound = R;
     static constexpr bool kHcOfRounded = HC_OF_ROUNDED;
 };
-using TierBf16r = Tier<Round::kBf16>;        // precision "default" over f32 data
-using TierTf32r = Tier<Round::kTf32>;        // precision "high"
-using TierBf16d = Tier<Round::kBf16, true>;  // dtype "bfloat16": bf16 data
+using TierTf32r = Tier<Round::kTf32>;  // precision "high"
 
 template <Round R>
 __device__ __forceinline__ float mxu_operand(float x) {
@@ -258,13 +260,6 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
                  "r"(src_size));
 }
-// The bf16 operand rows: 4 values, 8 bytes.
-__device__ __forceinline__ void cp_async8(void* smem_dst, const void* gmem_src, bool valid) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-    const int src_size = valid ? 8 : 0;  // 0: the 8 bytes are zero-filled
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem_src),
-                 "r"(src_size));
-}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -281,16 +276,8 @@ __device__ __forceinline__ float lane(const float4& v, int c) {
 }
 __device__ __forceinline__ float4 f4(const float v[4]) { return make_float4(v[0], v[1], v[2], v[3]); }
 
-// Four bf16 values (8 bytes, the first in the low half) as f32, exactly.
-__device__ __forceinline__ void bf16x4(const uint2 u, float v[4]) {
-    v[0] = __uint_as_float(u.x << 16);
-    v[1] = __uint_as_float(u.x & 0xffff0000u);
-    v[2] = __uint_as_float(u.y << 16);
-    v[3] = __uint_as_float(u.y & 0xffff0000u);
-}
-
-// A dense operand type (f32, or bf16 in the bf16-data mode); int32 words are
-// the packed operand.
+// A dense operand type (f32 here; bf16 in sweep_wgmma.cuh's bf16-data
+// mode); int32 words are the packed operand.
 template <typename Y>
 constexpr bool dense_operand() { return !std::is_same<Y, int32_t>::value; }
 
@@ -304,7 +291,7 @@ struct WPass {
     static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
     // Shared memory in floats: Ws [kpad/4][64][4]; Hs two stages of
     // [kpad][32]; Hc [kpad][32]; Ps, Qs [64][32]; operand tiles, dense
-    // [64][32] (bf16 ones fill half of that room) or words [2][32], each.
+    // [64][32] or words [2][32], each.
     static constexpr int kWs = kpad * kWRows;
     static constexpr int kHs = kpad * kWCols;
     static constexpr int kPQ = kWRows * kWCols;
@@ -372,13 +359,8 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                 const bool ok = w < Mw && col < Np;
                 const Y* src = op ? y2 : y;
                 const size_t row = kDense ? (size_t)word_row_bit(w, r % 32, bm, bmw) : (size_t)w;
-                if constexpr (sizeof(Y) == 4) {
-                    cp_async16(Ys + op * P::kYs + r * kWCols + 4 * ch,
-                               ok ? src + row * Np + col : src, ok);
-                } else {
-                    cp_async8(reinterpret_cast<Y*>(Ys + op * P::kYs) + r * kWCols + 4 * ch,
-                              ok ? src + row * Np + col : src, ok);
-                }
+                cp_async16(Ys + op * P::kYs + r * kWCols + 4 * ch, ok ? src + row * Np + col : src,
+                           ok);
             }
         }
         cp_async_commit();
@@ -473,19 +455,13 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
             const int lr = rw + 32 * j;
             float ym[4] = {0.f, 0.f, 0.f, 0.f}, ym2[4] = {0.f, 0.f, 0.f, 0.f};
             uint32_t word[4] = {0u, 0u, 0u, 0u}, word2[4] = {0u, 0u, 0u, 0u};
-            if constexpr (P::kReads && kDense && sizeof(Y) == 4) {
+            if constexpr (P::kReads && kDense) {
                 const float4 v = reinterpret_cast<const float4*>(Ys + lr * kWCols)[cq];
                 ym[0] = v.x, ym[1] = v.y, ym[2] = v.z, ym[3] = v.w;
                 if constexpr (SECOND) {
                     const float4 v2 = reinterpret_cast<const float4*>(Ys + P::kYs + lr * kWCols)[cq];
                     ym2[0] = v2.x, ym2[1] = v2.y, ym2[2] = v2.z, ym2[3] = v2.w;
                 }
-            } else if constexpr (P::kReads && kDense) {
-                bf16x4(reinterpret_cast<const uint2*>(reinterpret_cast<const Y*>(Ys) +
-                                                      lr * kWCols)[cq], ym);
-                if constexpr (SECOND)
-                    bf16x4(reinterpret_cast<const uint2*>(reinterpret_cast<const Y*>(Ys + P::kYs) +
-                                                          lr * kWCols)[cq], ym2);
             } else if constexpr (P::kReads) {
                 const int4 v = reinterpret_cast<const int4*>(Ys + j * kWCols)[cq];
                 word[0] = v.x, word[1] = v.y, word[2] = v.z, word[3] = v.w;
@@ -702,7 +678,7 @@ struct HPass {
     static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
     // Shared memory in floats: Hs [kpad/4][64][4]; Ws two stages of
     // [kpad][32]; Ps, Qs [64][32] (TERMS only); operand tiles, dense
-    // [32][64] (bf16 ones fill half of that room) or words [64], each.
+    // [32][64] or words [64], each.
     static constexpr int kHs = kpad * kHCols;
     static constexpr int kWs = kpad * kHRows;
     static constexpr int kPQ = TERMS ? kHCols * kHRows : 0;
@@ -798,11 +774,7 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
                 const Y* src = op ? y2 : y;
                 const size_t row = kDense ? (size_t)(row0 + b * bmw) : (size_t)w;
                 const int dst = kDense ? b * kHCols + 4 * (ch ^ ((b >> 2) & 7)) : 4 * ch;
-                if constexpr (sizeof(Y) == 4)
-                    cp_async16(Ys + op * P::kYs + dst, ok ? src + row * Np + col : src, ok);
-                else
-                    cp_async8(reinterpret_cast<Y*>(Ys + op * P::kYs) + dst,
-                              ok ? src + row * Np + col : src, ok);
+                cp_async16(Ys + op * P::kYs + dst, ok ? src + row * Np + col : src, ok);
             }
         }
         cp_async_commit();
@@ -866,20 +838,12 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
             const int cl = cw + 32 * j, col = c0 + cl;
             float ym[4] = {0.f, 0.f, 0.f, 0.f}, yc[4] = {0.f, 0.f, 0.f, 0.f};
             uint32_t word = 0u, word2 = 0u;
-            if constexpr (P::kReads && kDense && sizeof(Y) == 4) {
+            if constexpr (P::kReads && kDense) {
 #pragma unroll
                 for (int r = 0; r < 4; ++r) {
                     const int at = (4 * rq + r) * kHCols + 4 * ((cl >> 2) ^ rq) + (cl & 3);
                     ym[r] = Ys[at];
                     if constexpr (SECOND) yc[r] = Ys[P::kYs + at];
-                }
-            } else if constexpr (P::kReads && kDense) {
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    const int at = (4 * rq + r) * kHCols + 4 * ((cl >> 2) ^ rq) + (cl & 3);
-                    ym[r] = __bfloat162float(reinterpret_cast<const Y*>(Ys)[at]);
-                    if constexpr (SECOND)
-                        yc[r] = __bfloat162float(reinterpret_cast<const Y*>(Ys + P::kYs)[at]);
                 }
             } else if constexpr (P::kReads) {
                 word = reinterpret_cast<const uint32_t*>(Ys)[cl];

@@ -33,8 +33,10 @@ on the CPU.
 Both wrappers take ``precision=`` (``None``/``"highest"``, ``"high"``,
 ``"default"``; :mod:`~nbmf_mm_tpu_torch.ops.tiers` defines the tiers): a
 reduced tier launches the kernel instance that rounds every product operand
-(``nbmf_*_packed_bf16r``, ``_tf32r``), and the plain version rounds the same
-operands by the same rules.
+(``nbmf_*_packed_tf32r`` on the CUDA cores, ``nbmf_*_packed_bf16r`` on the
+tensor cores, from bf16 copies of the factors staged per call:
+:func:`plan_wgmma`, :func:`stage_bf16`), and the plain version rounds the
+same operands by the same rules.
 
 ``LAUNCHES`` counts kernel launches per wrapper and operand form (the key is
 the wrapper's name with the form's suffix, :func:`tiers.suffix`) and
@@ -75,6 +77,12 @@ __all__ = [
     "plan_w_split",
     "HSplit",
     "plan_h_split",
+    "WGMMA_FORMS",
+    "WgmmaPlan",
+    "plan_wgmma",
+    "stage_w_bf16_plain",
+    "stage_h_bf16_plain",
+    "stage_bf16",
     "hloss_terms_packed",
     "w_terms_packed",
 ]
@@ -98,6 +106,9 @@ W_TILE = 32
 # walked one word row (32 data rows) at a time.
 H_COLS = 64
 WAVES = 2  # rounds of resident blocks each pass's grid should fill at least
+# The operand forms whose passes run on the tensor cores (csrc/sweep_wgmma.cuh):
+# every product operand bf16, so a product is one wgmma.
+WGMMA_FORMS = ("bf16r", "bf16d")
 
 
 def resolve_device(device) -> torch.device:
@@ -201,10 +212,11 @@ def apply_col_validity(H: torch.Tensor, n_real: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ plain versions
-def _ratio_terms(W, H, eps):
+def _ratio_terms(W, H, eps, form="f32"):
     """``a = WH + eps``, ``b = max(1 - WH, 0) + eps``, ``r = 1/(a b)`` for
-    the whole ``(Mp, Np)`` product — the formulas of the Pallas kernels."""
-    wh = W.T @ H
+    the whole ``(Mp, Np)`` product — the formulas of the Pallas kernels —
+    with ``WH`` formed as :func:`tiers.wh_product` forms it under ``form``."""
+    wh = tiers.wh_product(W.T, H, form)
     a = wh + eps
     b = torch.clamp_min(1.0 - wh, 0.0) + eps
     r = 1.0 / (a * b)
@@ -218,7 +230,7 @@ def hloss_terms_packed_plain(W, H, words, words2=None, *, eps, m_real, n_real, b
     form = tiers.operand_form(precision)
     W = tiers.mxu_round(W, form)
     bit = _unpack_planes(words, bm)
-    a, b, r = _ratio_terms(W, tiers.mxu_round(H, form), eps)
+    a, b, r = _ratio_terms(W, tiers.mxu_round(H, form), eps, form)
     p = torch.where(bit, b * r, 0.0)
     if words2 is not None:
         bit2 = _unpack_planes(words2, bm)
@@ -241,7 +253,7 @@ def w_terms_packed_plain(W, H_new, words, words2=None, *, eps, n_real, bm, preci
     form = tiers.operand_form(precision)
     bit = _unpack_planes(words, bm)
     H = tiers.mxu_round(H_new, form)
-    a, b, r = _ratio_terms(tiers.mxu_round(W, form), H, eps)
+    a, b, r = _ratio_terms(tiers.mxu_round(W, form), H, eps, form)
     if words2 is not None:
         bit2 = _unpack_planes(words2, bm)
     else:
@@ -415,6 +427,87 @@ def plan_h_split(Mp: int, Np: int, k: int, n_sm: int) -> HSplit:
                   blocks, blocks / slots)
 
 
+class WgmmaPlan(NamedTuple):
+    """The staged bf16 copies of the tensor-core forms, as :func:`plan_wgmma`
+    plans them (``csrc/sweep_wgmma.cuh`` computes the same)."""
+
+    kn: int  # phase B's width: the output k rows of one block (32, 64 or 128)
+    nkb: int  # blocks over the output k (grid x): 1, or 2 above k = 128
+    kstage: int  # k rows of the staged copies, kn * nkb (zero beyond k)
+    Mps: int  # row length of W's bit-plane copy (zero beyond Mp)
+    Nps: int  # row length of H's (and 1 - H's) copy (zero beyond Np)
+
+
+def plan_wgmma(k: int, Mp: int, Np: int) -> WgmmaPlan:
+    """Geometry of the tensor-core passes' bf16 copies for rank ``k``: the
+    phase-B width ``kn`` (the smallest of 32, 64, 128 that holds ``k``, 128
+    above), ``ceil(k / kn)`` blocks over the output k, and rows padded past
+    ``Mp + 32``/``Np + 32`` to a multiple of 64 elements, so every 64-wide
+    tile a step reads (two word rows from any word row, 64 columns from any
+    32-column boundary) lies inside its row and starts on 16 bytes."""
+    if not 1 <= k <= MAX_RANK:
+        raise ValueError(f"plan_wgmma: the kernels take 1 <= k <= {MAX_RANK}, got k={k}")
+    kn = 32 if k <= 32 else 64 if k <= 64 else 128
+    nkb = -(-k // kn)
+    return WgmmaPlan(kn, nkb, kn * nkb, round_up(Mp + 32, 64), round_up(Np + 32, 64))
+
+
+def stage_w_bf16_plain(W, bm, plan: WgmmaPlan):
+    """Plain version of the W copy of the tensor-core passes: ``(..., kstage,
+    Mps)`` bf16, column ``32 w + b`` holding W's data row of bit ``b`` of word
+    row ``w`` (:func:`bitplane_rows`), zero beyond ``k`` and ``Mp``."""
+    *lead, k, Mp = W.shape
+    out = torch.zeros((*lead, plan.kstage, plan.Mps), dtype=torch.bfloat16, device=W.device)
+    out[..., :k, :Mp] = W[..., bitplane_rows(Mp, bm, W.device)].to(torch.bfloat16)
+    return out
+
+
+def stage_h_bf16_plain(H, plan: WgmmaPlan, form: Optional[str] = None):
+    """Plain version of the H copy of the tensor-core passes: ``(..., kstage,
+    Nps)`` bf16, zero beyond ``k`` and ``Np``; with ``form``, the W pass's
+    ``1 - h`` copy instead, by :func:`tiers.complement`'s rule for that form."""
+    *lead, k, Np = H.shape
+    value = H if form is None else tiers.complement(H, form)
+    out = torch.zeros((*lead, plan.kstage, plan.Nps), dtype=torch.bfloat16, device=H.device)
+    out[..., :k, :Np] = value.to(torch.bfloat16)
+    return out
+
+
+def stage_bf16(W, H, bm: int, form: str = "bf16r"):
+    """The bf16 copies a tensor-core pass of ``form`` makes of ``W`` (bit-plane
+    order), ``H`` and the W pass's ``1 - H``, as ``(W copy, H copy, 1 - H
+    copy)``: the staging kernels on CUDA tensors (one launch of
+    ``nbmf_stage_bf16``), their plain versions on the CPU.  The passes stage
+    inside their own entry points; this serves checking the staging alone."""
+    if form not in WGMMA_FORMS:
+        raise ValueError(f"stage_bf16: form must be one of {WGMMA_FORMS}, got {form!r}")
+    k, Mp = W.shape[-2:]
+    plan = plan_wgmma(k, Mp, H.shape[-1])
+    if W.device.type == "cpu":
+        return (stage_w_bf16_plain(W, bm, plan), stage_h_bf16_plain(H, plan),
+                stage_h_bf16_plain(H, plan, form))
+    from ._build import load_library
+
+    lanes = _check_cuda_operands("stage_bf16", W, H, None, None, bm, batched=True)
+    lead = tuple(W.shape[:-2])
+    lib = load_library()
+    bf = dict(dtype=torch.bfloat16, device=W.device)
+    wst = torch.empty((*lead, plan.kstage, plan.Mps), **bf)
+    hst, hcst = (torch.empty((*lead, plan.kstage, plan.Nps), **bf) for _ in range(2))
+    err = lib.nbmf_stage_bf16(W.data_ptr(), H.data_ptr(), wst.data_ptr(), hst.data_ptr(),
+                              hcst.data_ptr(), k, Mp, H.shape[-1], bm, int(form == "bf16d"),
+                              lanes or 1, W.device.index or 0,
+                              torch.cuda.current_stream(W.device).cuda_stream)
+    _raise_on_error(lib, "stage_bf16", err)
+    return wst, hst, hcst
+
+
+def wgmma_entry(entry: str) -> bool:
+    """Whether a pass's C entry point is a tensor-core form, which takes the
+    bf16 copies as scratch (:func:`plan_wgmma`)."""
+    return entry.startswith("nbmf_") and entry.rsplit("_", 1)[-1] in WGMMA_FORMS
+
+
 def _raise_on_error(lib, who, err):
     if err != 0:
         raise RuntimeError(f"{who}: CUDA error {err}: {lib.nbmf_error_string(err).decode()}")
@@ -441,7 +534,8 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
     """Allocate the outputs and scratch of an H-pass entry point (packed or
     dense; with ``terms=False`` the ll-only one, with ``loss=False`` one
     without ll), the row split's partials (:func:`plan_h_split`) and W's
-    bit-plane copy, and launch it on the current stream.  Returns
+    bit-plane copy (for a tensor-core form the bf16 copies of W and H,
+    :func:`plan_wgmma`), and launch it on the current stream.  Returns
     ``(Num, Den, ll)``, ``Num``/``Den`` None without terms, ``ll`` None
     without loss.  ``y`` may be None for an entry that reads no data.
 
@@ -464,7 +558,13 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
         ll = torch.empty(lead, **f32)
         ll_part = torch.empty(lanes * -(-Np // H_COLS) * plan.nsplit, dtype=torch.float64,
                               device=dev)
-    wperm = torch.empty((lanes, k, Mp), **f32)
+    if wgmma_entry(entry):  # the bf16 copies of W and H
+        wg = plan_wgmma(k, Mp, Np)
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        staged = (torch.empty((lanes, wg.kstage, wg.Mps), **bf),
+                  torch.empty((lanes, wg.kstage, wg.Nps), **bf))
+    else:  # W's bit-plane copy
+        staged = (torch.empty((lanes, k, Mp), **f32),)
     stream = torch.cuda.current_stream(dev).cuda_stream
     num = den = num_part = den_part = None
     outs = ()
@@ -474,15 +574,16 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
             num_part, den_part = (torch.empty((lanes, *plan.scratch), **f32) for _ in range(2))
         outs = (num.data_ptr(), den.data_ptr(), _ptr(num_part), _ptr(den_part))
     err = getattr(lib, entry)(W.data_ptr(), H.data_ptr(), _ptr(y), _ptr(y2), *outs,
-                              _ptr(ll_part), _ptr(ll), wperm.data_ptr(), k, Mp, Np, bm, m_real,
+                              _ptr(ll_part), _ptr(ll), *map(_ptr, staged), k, Mp, Np, bm, m_real,
                               n_real, plan.nsplit, lanes, float(eps), dev.index or 0, stream)
     _raise_on_error(lib, who, err)
     return num, den, ll
 
 
 def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
-    """Allocate ``T (n_out k, Mp)`` and the split scratch
-    (:func:`plan_w_split`) and launch a W-pass entry point on the current
+    """Allocate ``T (n_out k, Mp)``, the split scratch (:func:`plan_w_split`)
+    and, for a tensor-core form, the bf16 copies of W, H and 1 - H
+    (:func:`plan_wgmma`), and launch a W-pass entry point on the current
     stream; ``y`` may be None for an entry that reads no data.  The kernel
     copies ``H``'s and the operands' rows as 16-byte vectors.  A leading lane
     axis on the factors goes through the one launch, as in
@@ -501,10 +602,16 @@ def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
     T = torch.empty((*lead, n_out * k, Mp), dtype=torch.float32, device=dev)
     part = None if plan.scratch is None else torch.empty((lanes, *plan.scratch),
                                                          dtype=torch.float32, device=dev)
+    staged = ()
+    if wgmma_entry(entry):  # the bf16 copies of W, H and 1 - H
+        wg = plan_wgmma(k, Mp, Np)
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        staged = (torch.empty((lanes, wg.kstage, wg.Mps), **bf),
+                  *(torch.empty((lanes, wg.kstage, wg.Nps), **bf) for _ in range(2)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, entry)(
         W.data_ptr(), H_new.data_ptr(), _ptr(y), _ptr(y2), T.data_ptr(), _ptr(part),
-        k, Mp, Np, bm, n_real, plan.nsplit, lanes, float(eps), dev.index or 0, stream,
+        *map(_ptr, staged), k, Mp, Np, bm, n_real, plan.nsplit, lanes, float(eps), dev.index or 0, stream,
     )
     _raise_on_error(lib, who, err)
     return T

@@ -25,11 +25,12 @@ bitwise, on the CPU and on the card.
 Operand forms (:mod:`~nbmf_mm_tpu_torch.ops.tiers`): every wrapper takes
 ``precision=`` and a bf16 ``Ym`` (with ``Yc``/``Ym2`` bf16 too).  f32 data
 under ``None``/``"highest"`` runs the f32 instance (``csrc/sweep_dense.cu``);
-``"default"`` and ``"high"`` the instances that round every product operand
-to bf16 or TF32 (``sweep_tiers_bf16r.cu``, ``sweep_tiers_tf32r.cu``); bf16
-data, whatever ``precision`` says, the bf16-data instance
-(``sweep_bf16.cu``), whose operands are all bf16-rounded, with the W pass's
-``1 - h`` formed from the bf16 ``h``.  A bf16 ``Ym`` on the card is never
+``"high"`` the instance that rounds every product operand to TF32
+(``sweep_tiers_tf32r.cu``); ``"default"`` the tensor-core instance whose
+product operands are all bf16 (``sweep_tiers_bf16r.cu``, wgmma kernels of
+``sweep_wgmma.cuh``); bf16 data, whatever ``precision`` says, the bf16-data
+instance on the tensor cores (``sweep_bf16.cu``), with the W pass's ``1 - h``
+formed from the bf16 ``h``.  A bf16 ``Ym`` on the card is never
 widened to run another instance.  The plain versions round the same
 operands by the same rules.
 
@@ -95,7 +96,7 @@ def _masked_ll(Ym, yc, a, b, m_real, n_real):
 def hloss_terms_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real, precision=None):
     """Plain PyTorch version of the dense H pass: ``(Num, Den, ll)``."""
     form, W, H, Ym, Yc = _operands(W, H, Ym, Yc, precision)
-    a, b, r = cs._ratio_terms(W, H, eps)
+    a, b, r = cs._ratio_terms(W, H, eps, form)
     yc = 1.0 - Ym if Yc is None else Yc
     p = tiers.mxu_round(Ym * (b * r), form)
     q = tiers.mxu_round(yc * (a * r), form)
@@ -105,7 +106,7 @@ def hloss_terms_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real, precision=None)
 def h_terms_plain(W, H, Ym, Yc=None, *, eps, precision=None):
     """Plain PyTorch version of ``h_terms``: ``(Num, Den)`` without ll."""
     form, W, H, Ym, Yc = _operands(W, H, Ym, Yc, precision)
-    a, b, r = cs._ratio_terms(W, H, eps)
+    a, b, r = cs._ratio_terms(W, H, eps, form)
     yc = 1.0 - Ym if Yc is None else Yc
     return (W @ tiers.mxu_round(Ym * (b * r), form),
             W @ tiers.mxu_round(yc * (a * r), form))
@@ -114,7 +115,7 @@ def h_terms_plain(W, H, Ym, Yc=None, *, eps, precision=None):
 def w_terms_plain(W, H_new, Ym, Ym2=None, *, eps, n_real, precision=None):
     """Plain PyTorch version of the dense W pass: ``T (k, Mp)``."""
     form, Wr, H, Ym, Ym2 = _operands(W, H_new, Ym, Ym2, precision)
-    a, b, r = cs._ratio_terms(Wr, H, eps)
+    a, b, r = cs._ratio_terms(Wr, H, eps, form)
     if Ym2 is None:
         cols = torch.arange(Ym.shape[1], device=Ym.device)[None, :] < n_real
         Ym2 = torch.where(cols, 1.0 - Ym, 0.0)
@@ -126,8 +127,8 @@ def w_terms_plain(W, H_new, Ym, Ym2=None, *, eps, n_real, precision=None):
 
 def loglik_sum_plain(W, H, Ym, Yc=None, *, eps, m_real, n_real, precision=None):
     """Plain PyTorch version of ``loglik_sum``: the H pass's ``ll`` alone."""
-    _, W, H, Ym, Yc = _operands(W, H, Ym, Yc, precision)
-    a, b, _ = cs._ratio_terms(W, H, eps)
+    form, W, H, Ym, Yc = _operands(W, H, Ym, Yc, precision)
+    a, b, _ = cs._ratio_terms(W, H, eps, form)
     yc = 1.0 - Ym if Yc is None else Yc
     return _masked_ll(Ym, yc, a, b, m_real, n_real)
 

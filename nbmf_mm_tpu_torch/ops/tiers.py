@@ -1,6 +1,7 @@
 """The port's product precision tiers and its bf16-data mode: one definition
-shared by the CUDA kernels (``csrc/sweep_kernels.cuh``, ``Round`` and
-``Sweep::kHcOfRounded``), their plain PyTorch versions and the plain loop.
+shared by the CUDA kernels (``csrc/sweep_kernels.cuh``'s ``Round``, the
+bf16 staging of ``csrc/sweep_wgmma.cuh``), their plain PyTorch versions and
+the plain loop.
 
 The JAX package threads ``precision=`` into every matmul, and on the TPU the
 tier decides how the MXU rounds the operands of each product.  The port makes
@@ -21,10 +22,12 @@ card (up to the order of the fp32 sums):
 ========================  ===========================  ======================================
 
 The port's default stays IEEE fp32: ``precision=None`` means ``"highest"``,
-not DEFAULT as on the JAX package's Pallas path.  On CUDA cores a reduced
-tier does the same FMAs plus the roundings, so it buys no speed and only
-loses accuracy; that changes when the tiers reach the tensor cores.  On the
-CPU the JAX package computes every tier in fp32; the port rounds there too.
+not DEFAULT as on the JAX package's Pallas path.  The TF32 tier runs on
+the CUDA cores, the same FMAs plus the roundings; the bf16 forms (DEFAULT and
+the bf16-data mode) run their products on the tensor cores (``wgmma``, the
+kernels of ``csrc/sweep_wgmma.cuh``), whose ``WH`` sums the plain versions
+form the same way on the card (:func:`wh_product`).  On the CPU the JAX
+package computes every tier in fp32; the port rounds there too.
 
 The bf16-data mode (``dtype="bfloat16"``) stores the data operands ``Ym``,
 ``Ym2`` and ``Yc`` bf16 and keeps factors, updates and losses float32.  The
@@ -58,6 +61,7 @@ __all__ = [
     "round_tf32",
     "mxu_round",
     "complement",
+    "wh_product",
 ]
 
 TIERS = ("highest", "high", "default")
@@ -111,6 +115,22 @@ def mxu_round(x: torch.Tensor, form: str) -> torch.Tensor:
     if form == "f32":
         return x
     return round_tf32(x) if form == "tf32r" else round_bf16(x)
+
+
+def wh_product(A: torch.Tensor, B: torch.Tensor, form: str) -> torch.Tensor:
+    """The plain versions' ``WH = A @ B`` of two 2-D float32 operands already
+    rounded to ``form``.  For the bf16 forms on the card it is one bf16 GEMM
+    with fp32 accumulation (``torch.mm`` with ``out_dtype=torch.float32``),
+    whose sums round as the tensor cores' do in the port's ``wgmma`` kernels
+    (and the TPU's one bf16 pass): ``p`` and ``q`` are rounded to bf16 after
+    this product, and a sum one fp32 ulp apart can round one of them the
+    other way, which over a 64-row serving chunk moves ``W P`` by more than
+    1e-4 of its largest entry.  Elsewhere (every form on the CPU, f32 and
+    TF32 on the card, and the products after ``p`` and ``q``, where nothing
+    is rounded again) the fp32 matmul of the same values."""
+    if A.is_cuda and form in ("bf16r", "bf16d"):
+        return torch.mm(A.to(torch.bfloat16), B.to(torch.bfloat16), out_dtype=torch.float32)
+    return A @ B
 
 
 def complement(h: torch.Tensor, form: str) -> torch.Tensor:

@@ -3,14 +3,16 @@ checkout with that of a library built from another copy of the sources (for
 example the parent commit, unpacked with ``git archive``).
 
     python -m nbmf_mm_tpu_torch.tools.sass_diff --other <dir>/nbmf_mm_tpu_torch/ops/csrc \\
-        [--match REGEX]
+        [--match REGEX] [--ignore REGEX] [--other-library PATH]
 
-Both are built with the flags of :mod:`~nbmf_mm_tpu_torch.ops._build`;
+Both are built with the flags of :mod:`~nbmf_mm_tpu_torch.ops._build`
+(``--other-library`` takes the other copy's library as already built);
 ``cuobjdump -sass`` lists each kernel's code, and the anonymous-namespace
 tags that nvcc derives from a source's path are taken out of the names and
 the code before the comparison.  Prints one line per kernel that differs or
 exists on one side only, then a summary; exits 1 if a kernel that matches
-``--match`` differs or is missing on either side.  ``--diff N`` shows
+``--match`` and not ``--ignore`` (the kernels a change meant to replace or
+add) differs or is missing on either side.  ``--diff N`` shows
 where.  Needs the CUDA toolkit
 (``nvcc``, ``cuobjdump``), not a card.
 """
@@ -72,18 +74,25 @@ def main(argv=None) -> int:
                         help="the other copy's csrc directory")
     parser.add_argument("--match", default=".",
                         help="regex: kernels whose names match must be identical")
+    parser.add_argument("--other-library", type=Path, default=None,
+                        help="the other copy's built library, in place of building --other")
+    parser.add_argument("--ignore", default=None,
+                        help="regex: kernels whose names match are not selected")
     parser.add_argument("--diff", type=int, default=0, metavar="N",
                         help="print the first N lines of a unified diff of each selected "
                              "kernel that differs")
     args = parser.parse_args(argv)
     here = _build.load_library()._name
-    other = _build.BUILD_DIR / "sass_diff_other.so"
-    _build._compile(other, args.other.resolve())
+    other = args.other_library
+    if other is None:
+        other = _build.BUILD_DIR / "sass_diff_other.so"
+        _build._compile(other, args.other.resolve())
     mine, theirs = kernels_sass(Path(here)), kernels_sass(other)
     pattern = re.compile(args.match)
+    ignore = re.compile(args.ignore) if args.ignore else None
     same, bad = 0, 0
     for name in sorted(set(mine) | set(theirs)):
-        selected = bool(pattern.search(name))
+        selected = bool(pattern.search(name)) and not (ignore and ignore.search(name))
         if name in mine and name in theirs and mine[name] == theirs[name]:
             same += selected
             continue
@@ -97,7 +106,8 @@ def main(argv=None) -> int:
             for line in list(diff)[:args.diff]:
                 print("    " + line)
     print(f"sass_diff: {same} selected kernels identical, {bad} selected differ or are missing; "
-          f"{len(mine)} kernels here, {len(theirs)} in --other (--match {args.match!r})")
+          f"{len(mine)} kernels here, {len(theirs)} in --other (--match {args.match!r}, "
+          f"--ignore {args.ignore!r})")
     return 1 if bad else 0
 
 
