@@ -65,9 +65,14 @@ Phase 10 is the precision tiers and the bf16-data mode
 kernels (``_bf16r`` for ``precision="default"``, ``_tf32r`` for ``"high"``,
 ``_bf16d`` for ``dtype="bfloat16"``) against its plain version at the
 headline, lastfm, one word row and the split edges ``W_EDGES``/``H_EDGES`` in
-all three mask modes, with the bitwise ties (dense == packed per tier, the
-bf16-data H pass and ``loglik_sum`` == the DEFAULT tier's, the bf16-data W
-pass == DEFAULT's where H is bf16-representable, lane == unbatched at R = 4);
+all three mask modes, with the bitwise ties (two launches, dense == packed,
+``loglik_sum`` == the H pass's ll and ``h_terms`` == its Num/Den per tier,
+the bf16-data H pass and ``loglik_sum`` == the DEFAULT tier's, the bf16-data
+W pass == DEFAULT's where H is bf16-representable, lane == unbatched at
+R = 4), and the staged bf16 and TF32 copies against their plain versions;
+the build step prints each tensor-core instance's registers and spills, the
+HGMMA count of its SASS (every pass, the TF32 ones apart) and each TF32
+instance's blocks per SM;
 then, each with the counters zeroed before and read after,
 ``NBMF(dtype="bfloat16").fit`` on the mean matrix (bf16-data launches only,
 no ``pack_bits``, peak device memory beside a float32 fit's) and on the binary
@@ -135,9 +140,10 @@ HBM_RATE = 3.35e12
 # which the card could do that form's products, whatever its kernel runs on.
 BF16_TC_PEAK = 989e12
 TF32_TC_PEAK = 495e12
-# The kernels of sweep_wgmma.cuh (the passes and their bf16 staging), by
-# name, for printing their registers and spills.
-WGMMA_KERNELS = r"wgmma_kernel|stage_[wh]_bf16_kernel"
+# The kernels of sweep_wgmma.cuh and sweep_wgmma_tf32.cuh (the passes and
+# their bf16 and TF32 staging), by name, for printing their registers and
+# spills.
+WGMMA_KERNELS = r"wgmma_kernel|stage_[wh]_(bf16|tf32)_kernel"
 # Phase 3's edge shapes of the W pass's column split (label, (m, n), k): the
 # serving chunks, ranks across every instance, n neither a multiple of the
 # column tile nor of a chunk (n_real inside the last tile), one word row in a
@@ -227,9 +233,12 @@ TIER_BASES = ("hloss_terms_packed", "w_terms_packed", "hloss_terms", "w_terms", 
 
 
 def tier_source(base: str, form: str) -> str:
+    if form == "tf32r":
+        return "sweep_wgmma_tf32_packed.cu" if base.endswith("_packed") else (
+            "sweep_wgmma_tf32_dense.cu")
     if base.endswith("_packed"):
-        return "sweep_wgmma_packed.cu" if form == "bf16r" else "sweep_tiers_packed.cu"
-    return "sweep_bf16.cu" if form == "bf16d" else f"sweep_tiers_{form}.cu"
+        return "sweep_wgmma_packed.cu"
+    return "sweep_bf16.cu" if form == "bf16d" else "sweep_tiers_bf16r.cu"
 
 
 # name: (source, file:line of the TPU kernel): the form replaces the same
@@ -246,6 +255,9 @@ TOL_TIER_LL = 1e-5
 # The loss of a fit under a reduced tier may rise by this much from one sweep
 # to the next (the products carry bf16- or TF32-grade rounding).
 TIER_DESCENT = 2e-3
+# The 100-sweep headline solve's final loss under a reduced tier against the
+# float32 solve's, relative.
+TIER_LOSS_REL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1753,6 +1765,7 @@ def check_tier_kernels(label, Y, soft, k, card, cs, ds, errors):
                 same &= all(map(torch.equal, c["hloss_terms"], c["hloss_terms_packed"]))
                 same &= torch.equal(c["w_terms"], c["w_terms_packed"])
                 same &= torch.equal(c["loglik_sum"], c["hloss_terms_packed"][2])
+                same &= all(map(torch.equal, c["h_terms"], c["hloss_terms"][:2]))
         r = tier_calls(o, "bf16r", cs, ds)
         b = tier_calls(o, "bf16d", cs, ds)
         for base in ("hloss_terms", "loglik_sum", "h_terms"):
@@ -1763,9 +1776,10 @@ def check_tier_kernels(label, Y, soft, k, card, cs, ds, errors):
     bars = ", ".join(f"{form} {worst[form][0]:.3e} / ll {worst[form][1]:.3e}" for form in TIER_FORMS)
     print(f"tiers {label} {m}x{n} k={k}: the forms' kernels (binary, weighted [0,1]) in "
           f"{'/'.join(MODES)} against plain: max rel err {bars} (bounds {TOL_TIER_TERMS:g} of "
-          f"max|plain|, ll {TOL_TIER_LL:g}); bitwise repeat {repeat}; dense == packed per tier, "
-          f"bf16-data H/loglik_sum/h_terms == DEFAULT's, bf16-data W == DEFAULT's at "
-          f"bf16-representable H, bitwise {same} [{card}]", flush=True)
+          f"max|plain|, ll {TOL_TIER_LL:g}); bitwise repeat {repeat}; dense == packed, "
+          f"loglik_sum == the H pass's ll, h_terms == its Num/Den per tier, bf16-data "
+          f"H/loglik_sum/h_terms == DEFAULT's, bf16-data W == DEFAULT's at bf16-representable "
+          f"H, bitwise {same} [{card}]", flush=True)
     check(all(t <= TOL_TIER_TERMS and ll <= TOL_TIER_LL for t, ll in worst.values()),
           f"tiers {label}: a form's kernel disagrees with plain {worst}")
     check(repeat, f"tiers {label}: outputs differ between two launches")
@@ -1773,16 +1787,18 @@ def check_tier_kernels(label, Y, soft, k, card, cs, ds, errors):
 
 
 def check_wgmma_staging(card, cs):
-    """The bf16 copies the tensor-core forms stage (W in bit-plane order, H,
-    and 1 - H by each form's rule; ``cs.stage_bf16``) against their plain
-    versions on the same values, bitwise: at the headline, at lastfm, at
-    ranks that pad k (17, 200, 256) and at one word row, with H spread over
-    [-0.3, 1.4] so that 1 - h needs rounding, and with 4 lanes."""
+    """The copies the tensor-core forms stage against their plain versions
+    on the same values, bitwise: the bf16 copies (W in bit-plane order, H,
+    and 1 - H by each form's rule; ``cs.stage_bf16``) and the TF32 copies
+    in both orders (W^T, W's phase-B copy, H^T, H's and 1 - H's phase-B
+    copies; ``cs.stage_tf32``), at the headline, at lastfm, at ranks that
+    pad k (17, 200, 256) and at one word row, with H spread over [-0.3, 1.4]
+    so that 1 - h needs rounding, and with 4 lanes."""
     h = HEADLINE
     shapes = [((h["m"], h["n"]), h["k"], 1), ((1226, 285), PAPER_LASTFM_K, 1),
               ((1000, 1234), 17, 1), ((1000, 1234), 200, 1), ((1000, 1234), 256, 4),
               ((20, 1000), 8, 1)]
-    same = True
+    same = same_tf32 = True
     for (m, n), k, lanes in shapes:
         bm, Mp, Np = cs.plan_packing(m, n)
         pairs = [factors(m, n, k, Mp, Np, 40 + r) for r in range(lanes)]
@@ -1792,10 +1808,14 @@ def check_wgmma_staging(card, cs):
             got = cs.stage_bf16(W, H, bm, form)
             want = cs.stage_bf16(W.cpu(), H.cpu(), bm, form)
             same &= all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-    print(f"tiers: the bf16 staging of the tensor-core forms (W bit-plane, H, 1 - H by each "
-          f"form's rule) at {len(shapes)} shapes, k 8 to 256, lanes 1 and 4, == plain bitwise "
-          f"{same} [{card}]", flush=True)
+        got, want = cs.stage_tf32(W, H, bm), cs.stage_tf32(W.cpu(), H.cpu(), bm)
+        same_tf32 &= all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    print(f"tiers: the staging of the tensor-core forms at {len(shapes)} shapes, k 8 to 256, "
+          f"lanes 1 and 4, == plain bitwise: bf16 (W bit-plane, H, 1 - H by each form's rule) "
+          f"{same}, TF32 (W^T, W, H^T, H, 1 - H; the phase-B copies in slot8 order) {same_tf32} "
+          f"[{card}]", flush=True)
     check(same, "tiers: a bf16 staging copy differs from its plain version")
+    check(same_tf32, "tiers: a TF32 staging copy differs from its plain version")
 
 
 def check_tier_lanes(X, P, k, card, cs, ds, errors):
@@ -1957,6 +1977,8 @@ def tier_solves(solve, X, card, cs, ds):
                   f"extras {res.extras} [{card}]", flush=True)
             check(descends(res.losses, TIER_DESCENT) and res.n_iter == sweeps,
                   f"precision {precision}: losses")
+            check(abs(loss - ref.losses[-1]) <= TIER_LOSS_REL * abs(ref.losses[-1]),
+                  f"precision {precision}: the final loss is off float32's")
             check(res.extras.get("precision") == precision, f"precision {precision}: extras")
             check(not np.array_equal(res.W, ref.W), f"precision {precision}: the float32 solve")
             if packed is None:
@@ -2054,8 +2076,10 @@ def request_ms(server, X, mask, reps: int = 3) -> float:
 
 def tier_grid_and_restarts(NBMF, grid_solve, X, lastfm, mask, card, cs, ds):
     """The 6 x 6 lastfm grid in the bf16-data mode (36 lanes on the bf16
-    kernels) and ``NBMF(n_init=4, precision="default")`` at the headline
-    (4 lanes on K1/K2 in the DEFAULT tier)."""
+    kernels) and under ``precision="high"`` (36 lanes on the TF32 kernels,
+    every cell descending within ``TIER_DESCENT``), and ``NBMF(n_init=4,
+    precision=...)`` at the headline under ``"default"`` and ``"high"`` (4
+    lanes on K1/K2 in that tier)."""
     k, sweeps = PAPER_LASTFM_K, 200
     total = {}
     zero_counts(cs, ds)
@@ -2080,24 +2104,46 @@ def tier_grid_and_restarts(NBMF, grid_solve, X, lastfm, mask, card, cs, ds):
           and sum(launches.values()) == launches["hloss_terms_bf16d"]
           + launches["w_terms_bf16d"] + launches["loglik_sum_bf16d"], "bf16 grid: launches")
 
-    R, steps = 4, 20
     zero_counts(cs, ds)
-    est, wall = timed(lambda: NBMF(n_components=HEADLINE["k"], n_init=R, max_iter=steps, tol=0.0,
-                                   random_state=0, precision="default", dtype="float32",
-                                   device=DEV).fit(X))
+    g, wall = timed(lambda: grid_solve(lastfm, k, PAPER_GRID, PAPER_GRID, mask=mask,
+                                       max_iter=sweeps, precision="high", dtype="float32",
+                                       device=DEV))
     launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
     add_counts(total, cs, ds)
-    finals = est.solver_result_.all_final_losses
-    print(f"tiers: NBMF(n_init={R}, precision='default').fit(headline), {steps} sweeps: "
-          f"{wall:.2f} s wall, final losses {finals.min():.6f} to {finals.max():.6f}, best "
-          f"{est.solver_result_.best_restart}; launches "
-          f"{ {n: c for n, c in launches.items() if c} }, lanes "
+    curves = [g["losses"][c, :g["n_iter"][c]] for c in range(cells)]
+    rises = max(float(np.max(np.diff(c.astype(np.float64)) / np.abs(c[:-1]))) for c in curves)
+    used = {name: n for name, n in launches.items() if n}
+    print(f"tiers: grid_solve(lastfm, {k}, 6 x 6, parity mask, precision='high'): {wall:.2f} s "
+          f"wall, n_iter {int(g['n_iter'].min())} to {int(g['n_iter'].max())}, final losses "
+          f"{g['final_loss'].min():.6f} to {g['final_loss'].max():.6f}; largest relative rise of a "
+          f"cell's loss {rises:.2e} (bound {TIER_DESCENT:g}); launches {used}, lanes "
           f"{ {n: c for n, c in lanes.items() if c} } [{card}]", flush=True)
-    tier_count_check("n_init=4 default", launches, {"hloss_terms_packed_bf16r": steps + 1,
-                                                    "w_terms_packed_bf16r": steps})
-    check(lanes["hloss_terms_packed_bf16r"] == R * (steps + 1)
-          and lanes["w_terms_packed_bf16r"] == R * steps and np.isfinite(finals).all()
-          and descends(est.loss_curve_, TIER_DESCENT), "n_init=4 default: lanes or losses")
+    check(all(np.isfinite(g[name]).all() for name in ("W", "H", "final_loss"))
+          and all(descends(c, TIER_DESCENT) for c in curves), "TF32 grid: losses")
+    check(used and all(name.endswith("_tf32r") for name in used)
+          and all(lanes[name] == cells * n for name, n in used.items()
+                  if name.startswith(("hloss_terms", "w_terms"))),
+          "TF32 grid: launches")
+
+    R, steps = 4, 20
+    for precision, form in (("default", "bf16r"), ("high", "tf32r")):
+        zero_counts(cs, ds)
+        est, wall = timed(lambda: NBMF(n_components=HEADLINE["k"], n_init=R, max_iter=steps,
+                                       tol=0.0, random_state=0, precision=precision,
+                                       dtype="float32", device=DEV).fit(X))
+        launches, lanes = read_counts(cs, ds), read_lanes(cs, ds)
+        add_counts(total, cs, ds)
+        finals = est.solver_result_.all_final_losses
+        print(f"tiers: NBMF(n_init={R}, precision={precision!r}).fit(headline), {steps} sweeps: "
+              f"{wall:.2f} s wall, final losses {finals.min():.6f} to {finals.max():.6f}, best "
+              f"{est.solver_result_.best_restart}; launches "
+              f"{ {n: c for n, c in launches.items() if c} }, lanes "
+              f"{ {n: c for n, c in lanes.items() if c} } [{card}]", flush=True)
+        tier_count_check(f"n_init=4 {precision}", launches,
+                         {f"hloss_terms_packed_{form}": steps + 1, f"w_terms_packed_{form}": steps})
+        check(lanes[f"hloss_terms_packed_{form}"] == R * (steps + 1)
+              and lanes[f"w_terms_packed_{form}"] == R * steps and np.isfinite(finals).all()
+              and descends(est.loss_curve_, TIER_DESCENT), f"n_init=4 {precision}: lanes or losses")
     return total
 
 
@@ -2249,6 +2295,21 @@ def main() -> None:
           f"{min(hgmma.values(), default=0)} to {max(hgmma.values(), default=0)}", flush=True)
     check(len(hgmma) > 0 and min(hgmma.values()) > 0,
           "a tensor-core pass has no HGMMA instruction in its SASS")
+    tf32_hgmma = {name: count for name, count in hgmma.items() if "tf32" in name}
+    print(f"  SASS: {len(tf32_hgmma)} TF32 pass instances, HGMMA instructions in each "
+          f"{min(tf32_hgmma.values(), default=0)} to {max(tf32_hgmma.values(), default=0)}",
+          flush=True)
+    check(len(tf32_hgmma) > 0 and min(tf32_hgmma.values()) > 0,
+          "a TF32 pass has no HGMMA instruction in its SASS")
+    # Two blocks of a TF32 pass share an SM up to k = 128 (the tensor cores and
+    # the CUDA cores overlap across them); one above.
+    occupancy = cs.tf32_occupancy()
+    for (name, rank, second), (blocks, smem) in occupancy.items():
+        print(f"  occupancy, TF32 {name} k={rank}{' with its second operand' if second else ''}: "
+              f"{blocks} blocks/SM at {smem} bytes of shared memory", flush=True)
+    check(all(blocks >= (2 if rank <= 128 else 1)
+              for (_, rank, _), (blocks, _) in occupancy.items()),
+          "a TF32 pass instance holds fewer blocks per SM than planned")
 
     # ------------------------------------------- 3. kernels against plain
     X = headline_matrix()

@@ -53,28 +53,39 @@ _SIGNATURES = {
     "nbmf_probe_reduce": [_P] * 6 + [_I] * 8 + [_P],
 }
 # The operand forms of the production passes (ops/tiers.py), the form's
-# suffix on the name.  The TF32 forms (sweep_tiers_tf32r.cu,
-# sweep_tiers_packed.cu) take the f32 entry points' signatures.  The bf16
-# forms on the tensor cores (sweep_wgmma.cuh: sweep_wgmma_packed.cu,
-# sweep_tiers_bf16r.cu, sweep_bf16.cu) take the bf16 copies of the factors
-# as scratch (cuda_sweep.plan_wgmma): the H passes wst, hst in place of
-# wperm, the W pass wst, hst, hcst after part.
+# suffix on the name, all on the tensor cores.  The bf16 forms
+# (sweep_wgmma.cuh: sweep_wgmma_packed.cu, sweep_tiers_bf16r.cu,
+# sweep_bf16.cu) take the bf16 copies of the factors as scratch
+# (cuda_sweep.plan_wgmma): the H passes wst, hst in place of wperm, the W
+# pass wst, hst, hcst after part.  The TF32 forms (sweep_wgmma_tf32.cuh:
+# sweep_wgmma_tf32_packed.cu, sweep_wgmma_tf32_dense.cu) take their TF32
+# copies: the H passes wt, wk, ht in place of wperm, the W pass wt, ht, hk,
+# hck after part.
 _PASSES = ("hloss_terms_packed", "w_terms_packed",
            *(f"{dense}_dense" for dense in ("hloss_terms", "w_terms", "loglik_sum", "h_terms")))
-_SIGNATURES.update({f"nbmf_{name}_tf32r": _SIGNATURES[f"nbmf_{name}"] for name in _PASSES})
 
 
-def _with_bf16_copies(name):
+def _with_copies(name, h_copies, w_copies):
+    """The f32 entry point's signature with the form's staged copies: the
+    W pass's after ``part``, the H passes' in place of ``wperm``."""
     sig = _SIGNATURES[f"nbmf_{name}"]
-    at, added = (6, 3) if name.startswith("w_terms") else (sig.index(_I), 1)
-    return sig[:at] + [_P] * added + sig[at:]
+    if name.startswith("w_terms"):
+        return sig[:6] + [_P] * w_copies + sig[6:]
+    at = sig.index(_I) - 1  # wperm, the last pointer before k
+    return sig[:at] + [_P] * h_copies + sig[at + 1:]
 
 
-_SIGNATURES.update({f"nbmf_{name}_{form}": _with_bf16_copies(name)
+_SIGNATURES.update({f"nbmf_{name}_{form}": _with_copies(name, 2, 3)
                     for name in _PASSES for form in ("bf16r", "bf16d")
                     if not (form == "bf16d" and name.endswith("_packed"))})
+_SIGNATURES.update({f"nbmf_{name}_tf32r": _with_copies(name, 3, 4) for name in _PASSES})
 # W, H, wst, hst, hcst, k, Mp, Np, bm, hc_of_rounded, lanes, device, stream
 _SIGNATURES["nbmf_stage_bf16"] = [_P] * 5 + [_I] * 7 + [_P]
+# W, H, wt, wk, ht, hk, hck, k, Mp, Np, bm, lanes, device, stream
+_SIGNATURES["nbmf_stage_tf32"] = [_P] * 7 + [_I] * 6 + [_P]
+# pass, k, second, blocks per SM (int*), shared memory bytes (int*)
+_SIGNATURES["nbmf_tf32_occupancy_packed"] = [_I] * 3 + [_P] * 2
+_SIGNATURES["nbmf_tf32_occupancy_dense"] = [_I] * 3 + [_P] * 2
 # The H- and W-pass probes of probes.cu take the production signatures
 # (with lanes == 1).
 _SIGNATURES.update(

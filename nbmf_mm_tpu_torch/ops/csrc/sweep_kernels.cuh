@@ -74,11 +74,9 @@
 //     into a second buffer while the current tile computes;
 //   - registers: __launch_bounds__ keeps two 256-thread blocks on an SM
 //     (128 registers, no spills, by ptxas -v) up to k = 128.
-// fp32 FMA on the CUDA cores throughout.  The precision tier "high"
-// (ops/tiers.py) is an instance whose policy rounds every operand of every
-// product to TF32 before that FMA (Sweep::kRound): the same loops, the same
-// sums, plus the roundings.  The bf16 forms (precision "default" and the
-// bf16-data mode) run on the tensor cores (sweep_wgmma.cuh).
+// fp32 FMA on the CUDA cores throughout.  The reduced-precision forms
+// (precision "default" and "high", the bf16-data mode; ops/tiers.py) run on
+// the tensor cores (sweep_wgmma.cuh, sweep_wgmma_tf32.cuh).
 //
 // Lanes: every kernel here takes a leading lane axis R on the factors from
 // its grid (blockIdx.z of the two passes, blockIdx.y of the small kernels
@@ -112,13 +110,12 @@
 
 namespace {
 
-// Rounding of the product operands (the precision tiers, ops/tiers.py).
-enum class Round : int { kNone = 0, kBf16 = 1, kTf32 = 2 };
+// Rounding of the product operands (the bf16 probes).
+enum class Round : int { kNone = 0, kBf16 = 1 };
 
 // Per-entry policy of the two passes.  Sweep is the production policy; the
-// measurement probes of probes.cu and the tier forms (Tier, below) derive
-// from it and change single values, so every production instance
-// compiles to the code it had without them.
+// measurement probes of probes.cu derive from it and change single values,
+// so every production instance compiles to the code it had without them.
 struct Sweep {
     // b = max(1 - WH, 0) + eps; false: 1 - WH + eps (the tools/ probes).
     static constexpr bool kClampB = true;
@@ -134,51 +131,18 @@ struct Sweep {
     // T2 = H.(WH+1)^T written as rows k..2k-1 of T.
     static constexpr int kWForm = 0;
     // Round every operand of every product before the fp32 FMA (sums stay
-    // fp32): kBf16 to bf16, nearest even (the bf16 probes); kTf32 to TF32,
-    // nearest with ties away from zero (precision HIGH).  The probes round
-    // W, H and the tile values; the production TF32 form also p, q and the
-    // W pass's 1 - h.
+    // fp32): kBf16 to bf16, nearest even (the bf16 probes round W, H, the
+    // tile values and the W pass's 1 - h as round(1 - h)).
     static constexpr Round kRound = Round::kNone;
-    // The W pass's 1 - h operand under a rounding: false round(1 - h), the
-    // MXU rounding the f32 difference (a tier over f32 data); true
-    // round(1 - round(h)), the TPU kernel forming 1.0 - h in bf16 from the
-    // bf16 h (the bf16-data mode, pallas_sweep.py:379; its production form
-    // runs on the tensor cores, sweep_wgmma.cuh).
-    static constexpr bool kHcOfRounded = false;
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// What cvt.rna.tf32.f32 gives, as a bit operation on finite values (the
-// mantissa's 13 low bits cleared after adding half of their weight to the
-// magnitude); infinities and NaNs pass unchanged.
-__device__ __forceinline__ float round_tf32(float x) {
-    const uint32_t u = __float_as_uint(x);
-    if ((u & 0x7f800000u) == 0x7f800000u) return x;
-    return __uint_as_float((u + 0x1000u) & ~0x1fffu);
-}
-
-// The production passes under a precision tier (ops/tiers.py): every
-// operand of every product rounded, W, H, p, q and the W pass's 1 - h (by
-// the rule HC_OF_ROUNDED).  Instantiated for "high" (TF32) in
-// sweep_tiers_tf32r.cu and sweep_tiers_packed.cu; the bf16 forms (precision
-// "default" and the bf16-data mode) run on the tensor cores instead
-// (sweep_wgmma.cuh).  HC_OF_ROUNDED stays a parameter, false for TF32, so
-// that the TF32 instances keep the names (and the SASS) they had when the
-// bf16-data form was an instance here.
-template <Round R, bool HC_OF_ROUNDED = false>
-struct Tier : Sweep {
-    static constexpr Round kRound = R;
-    static constexpr bool kHcOfRounded = HC_OF_ROUNDED;
-};
-using TierTf32r = Tier<Round::kTf32>;  // precision "high"
-
 template <Round R>
 __device__ __forceinline__ float mxu_operand(float x) {
     if constexpr (R == Round::kBf16) return round_bf16(x);
-    if constexpr (R == Round::kTf32) return round_tf32(x);
     return x;
 }
 
@@ -389,15 +353,15 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
         cp_async_wait_all();
         __syncthreads();  // tile t has landed; the previous phase B is done
         if constexpr (E::kRound != Round::kNone && P::kHc) {
-            // The two operands of the tile: h and 1 - h, each rounded (1 - h
-            // by the rule of Sweep::kHcOfRounded), before phase A reads h.
+            // The two operands of the tile: h and round(1 - h), each
+            // rounded, before phase A reads h.
             for (int e = tid; e < P::kHs / 4; e += kThreads) {
                 float4 v = reinterpret_cast<const float4*>(Hs)[e];
                 float h[4] = {v.x, v.y, v.z, v.w}, c[4];
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
                     const float r = mxu_operand<E::kRound>(h[i]);
-                    c[i] = mxu_operand<E::kRound>(1.f - (E::kHcOfRounded ? r : h[i]));
+                    c[i] = mxu_operand<E::kRound>(1.f - h[i]);
                     h[i] = r;
                 }
                 reinterpret_cast<float4*>(Hs)[e] = f4(h);
@@ -701,19 +665,6 @@ __global__ void bitplane_w_kernel(const float* __restrict__ W, float* __restrict
     const size_t lane0 = (size_t)blockIdx.y * k * Mp;
     const int kk = (int)(e / Mp), c = (int)(e % Mp);
     Wp[lane0 + e] = mxu_operand<BF16 ? Round::kBf16 : Round::kNone>(
-        W[lane0 + (size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
-}
-
-// The same copy rounded to TF32 (precision HIGH): a kernel of its own, so
-// that the instances above keep their names and code.
-template <int = 0>
-__global__ void bitplane_w_tf32_kernel(const float* __restrict__ W, float* __restrict__ Wp,
-                                       int k, int Mp, int bm) {
-    const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= (size_t)k * Mp) return;
-    const size_t lane0 = (size_t)blockIdx.y * k * Mp;
-    const int kk = (int)(e / Mp), c = (int)(e % Mp);
-    Wp[lane0 + e] = round_tf32(
         W[lane0 + (size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
 }
 
@@ -1027,11 +978,8 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     const size_t count = (size_t)k * Mp;
     const dim3 copy_grid((unsigned)((count + kThreads - 1) / kThreads), lanes);
-    if constexpr (E::kRound == Round::kTf32)
-        bitplane_w_tf32_kernel<0><<<copy_grid, kThreads, 0, stream>>>(W, wperm, k, Mp, bm);
-    else
-        bitplane_w_kernel<E::kRound == Round::kBf16><<<copy_grid, kThreads, 0, stream>>>(
-            W, wperm, k, Mp, bm);
+    bitplane_w_kernel<E::kRound == Round::kBf16><<<copy_grid, kThreads, 0, stream>>>(
+        W, wperm, k, Mp, bm);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = dispatch_tk<HpassLauncher<SECOND, Y, TERMS, LOSS, E>>(
@@ -1053,7 +1001,7 @@ int run_hloss_as(const float* W, const float* H, const Y* y, const Y* y2, float*
     return (int)cudaGetLastError();
 }
 
-// The production H pass (or a tier form of it, policy E) from the operands
+// The production H pass (or a probe form of it, policy E) from the operands
 // y and, when given, y2.
 template <typename Y, bool TERMS, bool LOSS = true, class E = Sweep>
 int run_hloss(const float* W, const float* H, const Y* y, const Y* y2, float* num, float* den,
@@ -1099,7 +1047,7 @@ int run_wterms_as(const float* W, const float* H, const Y* y, const Y* y2, float
     return (int)cudaGetLastError();
 }
 
-// The production W pass (or a tier form of it, policy E): T (k, Mp) from
+// The production W pass (or a probe form of it, policy E): T (k, Mp) from
 // the operands y and, when given, y2.
 template <typename Y, class E = Sweep>
 int run_wterms(const float* W, const float* H, const Y* y, const Y* y2, float* T, float* part,
@@ -1113,60 +1061,3 @@ int run_wterms(const float* W, const float* H, const Y* y, const Y* y2, float* T
 }
 
 }  // namespace
-
-// The C entry points of one operand form, with the signatures of the f32
-// ones (sweep_packed.cu, sweep_dense.cu) and the form's suffix on the name.
-#define NBMF_PACKED_FORM(SUFFIX, POLICY)                                                          \
-    int nbmf_hloss_terms_packed##SUFFIX(                                                          \
-        const float* W, const float* H, const int32_t* words, const int32_t* words2, float* num,  \
-        float* den, float* num_part, float* den_part, double* ll_part, float* ll, float* wperm,   \
-        int k, int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,  \
-        int device, void* stream_ptr) {                                                           \
-        return run_hloss<int32_t, true, true, POLICY>(W, H, words, words2, num, den, num_part,    \
-                                                      den_part, ll_part, ll, wperm, k, Mp, Np,    \
-                                                      bm, m_real, n_real, nsplit, lanes, eps,     \
-                                                      device, stream_ptr);                        \
-    }                                                                                             \
-    int nbmf_w_terms_packed##SUFFIX(const float* W, const float* H, const int32_t* words,         \
-                                    const int32_t* words2, float* T, float* part, int k, int Mp,  \
-                                    int Np, int bm, int n_real, int nsplit, int lanes, float eps, \
-                                    int device, void* stream_ptr) {                               \
-        return run_wterms<int32_t, POLICY>(W, H, words, words2, T, part, k, Mp, Np, bm, n_real,   \
-                                           nsplit, lanes, eps, device, stream_ptr);               \
-    }
-
-#define NBMF_DENSE_FORM(SUFFIX, Y, POLICY)                                                        \
-    int nbmf_hloss_terms_dense##SUFFIX(                                                           \
-        const float* W, const float* H, const Y* Ym, const Y* Yc, float* num, float* den,         \
-        float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,        \
-        int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,         \
-        int device, void* stream_ptr) {                                                           \
-        return run_hloss<Y, true, true, POLICY>(W, H, Ym, Yc, num, den, num_part, den_part,       \
-                                                ll_part, ll, wperm, k, Mp, Np, bm, m_real,        \
-                                                n_real, nsplit, lanes, eps, device, stream_ptr);  \
-    }                                                                                             \
-    int nbmf_h_terms_dense##SUFFIX(                                                               \
-        const float* W, const float* H, const Y* Ym, const Y* Yc, float* num, float* den,         \
-        float* num_part, float* den_part, double* ll_part, float* ll, float* wperm, int k,        \
-        int Mp, int Np, int bm, int m_real, int n_real, int nsplit, int lanes, float eps,         \
-        int device, void* stream_ptr) {                                                           \
-        return run_hloss<Y, true, false, POLICY>(W, H, Ym, Yc, num, den, num_part, den_part,      \
-                                                 ll_part, ll, wperm, k, Mp, Np, bm, m_real,       \
-                                                 n_real, nsplit, lanes, eps, device, stream_ptr); \
-    }                                                                                             \
-    int nbmf_w_terms_dense##SUFFIX(const float* W, const float* H, const Y* Ym, const Y* Ym2,     \
-                                   float* T, float* part, int k, int Mp, int Np, int bm,          \
-                                   int n_real, int nsplit, int lanes, float eps, int device,      \
-                                   void* stream_ptr) {                                            \
-        return run_wterms<Y, POLICY>(W, H, Ym, Ym2, T, part, k, Mp, Np, bm, n_real, nsplit,       \
-                                     lanes, eps, device, stream_ptr);                             \
-    }                                                                                             \
-    int nbmf_loglik_sum_dense##SUFFIX(const float* W, const float* H, const Y* Ym, const Y* Yc,   \
-                                      double* ll_part, float* ll, float* wperm, int k, int Mp,    \
-                                      int Np, int bm, int m_real, int n_real, int nsplit,         \
-                                      int lanes, float eps, int device, void* stream_ptr) {       \
-        return run_hloss<Y, false, true, POLICY>(W, H, Ym, Yc, nullptr, nullptr, nullptr,         \
-                                                 nullptr, ll_part, ll, wperm, k, Mp, Np, bm,      \
-                                                 m_real, n_real, nsplit, lanes, eps, device,      \
-                                                 stream_ptr);                                     \
-    }

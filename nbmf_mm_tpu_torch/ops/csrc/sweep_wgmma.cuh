@@ -4,7 +4,7 @@
 // operand of every product is bf16 and every sum fp32 (ops/tiers.py).  Such
 // a product is exactly what a Hopper tensor core computes, so these forms
 // run their three products per pass as wgmma instructions, where the f32
-// and TF32 instances of sweep_kernels.cuh run FMAs on the CUDA cores.
+// instances of sweep_kernels.cuh run FMAs (TF32: sweep_wgmma_tf32.cuh).
 //
 // What they replace (the JAX package's ops/pallas_sweep.py, under
 // lax.Precision.DEFAULT or on bf16 data, where _mxu_dtype casts every

@@ -32,11 +32,11 @@ on the CPU.
 
 Both wrappers take ``precision=`` (``None``/``"highest"``, ``"high"``,
 ``"default"``; :mod:`~nbmf_mm_tpu_torch.ops.tiers` defines the tiers): a
-reduced tier launches the kernel instance that rounds every product operand
-(``nbmf_*_packed_tf32r`` on the CUDA cores, ``nbmf_*_packed_bf16r`` on the
-tensor cores, from bf16 copies of the factors staged per call:
-:func:`plan_wgmma`, :func:`stage_bf16`), and the plain version rounds the
-same operands by the same rules.
+reduced tier launches the tensor-core instance that rounds every product
+operand (``nbmf_*_packed_tf32r``, ``nbmf_*_packed_bf16r``), from copies of
+the factors staged per call (:func:`plan_wgmma`; :func:`stage_bf16`,
+:func:`stage_tf32`), and the plain version rounds the same operands by the
+same rules.
 
 ``LAUNCHES`` counts kernel launches per wrapper and operand form (the key is
 the wrapper's name with the form's suffix, :func:`tiers.suffix`) and
@@ -78,11 +78,19 @@ __all__ = [
     "HSplit",
     "plan_h_split",
     "WGMMA_FORMS",
+    "TF32_FORMS",
     "WgmmaPlan",
     "plan_wgmma",
+    "WgmmaShape",
+    "wgmma_shape",
     "stage_w_bf16_plain",
     "stage_h_bf16_plain",
     "stage_bf16",
+    "SLOT8",
+    "phase_b_order",
+    "stage_tf32_plain",
+    "stage_tf32",
+    "tf32_occupancy",
     "hloss_terms_packed",
     "w_terms_packed",
 ]
@@ -106,9 +114,17 @@ W_TILE = 32
 # walked one word row (32 data rows) at a time.
 H_COLS = 64
 WAVES = 2  # rounds of resident blocks each pass's grid should fill at least
-# The operand forms whose passes run on the tensor cores (csrc/sweep_wgmma.cuh):
-# every product operand bf16, so a product is one wgmma.
+# The operand forms whose passes run on the tensor cores from bf16 copies
+# (csrc/sweep_wgmma.cuh): every product operand bf16, so a product is one
+# wgmma.
 WGMMA_FORMS = ("bf16r", "bf16d")
+# The form that runs on the tensor cores from TF32 copies in two orders
+# (csrc/sweep_wgmma_tf32.cuh): every product operand TF32.
+TF32_FORMS = ("tf32r",)
+# Physical slot j of each group of 8 in a TF32 phase-B copy holds logical
+# index SLOT8[j]: the K indices of the m64nNk8.tf32 A fragment (t, t + 4)
+# against those of the accumulator it is taken from (2t, 2t + 1).
+SLOT8 = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def resolve_device(device) -> torch.device:
@@ -452,6 +468,37 @@ def plan_wgmma(k: int, Mp: int, Np: int) -> WgmmaPlan:
     return WgmmaPlan(kn, nkb, kn * nkb, round_up(Mp + 32, 64), round_up(Np + 32, 64))
 
 
+class WgmmaShape(NamedTuple):
+    """A tensor-core pass's steps and the shared memory a block asks for, as
+    its launcher plans them (``csrc/sweep_wgmma.cuh``, ``sweep_wgmma_tf32.cuh``)."""
+
+    step: int  # data rows (H pass) or columns (W pass) of one step
+    stages_a: int  # stages of the streamed phase-A tile
+    stages_b: int  # stages of the phase-B tiles (0: phase B reads phase A's tile)
+    h_smem: int  # bytes of an H-pass block with phase B (loglik_sum takes less)
+    w_smem: int  # bytes of a W-pass block
+
+
+def wgmma_shape(k: int, form: str) -> WgmmaShape:
+    """The steps and shared memory of the tensor-core passes of ``form`` at
+    rank ``k``.  The bf16 forms step 64 wide and read one 128-byte-swizzled
+    copy of each tile in both phases.  TF32 takes twice the bytes and two
+    layouts (wgmma reads TF32 only K-major), so its steps are 32 wide, the
+    phase-A tile streams in two stages and the phase-B tiles in one: the
+    resident 64-row phase-A tile, two 32-row ones, one ``[kn][32]`` phase-B
+    tile in the H pass and two in the W pass, 4 bytes a value.  Each adds
+    1024 bytes for aligning the tiles to the swizzle's 1024-byte period."""
+    plan = plan_wgmma(k, PACKED_WORD_BITS, 4)
+    if form in WGMMA_FORMS:
+        row = 128  # a 64-wide bf16 row of a tile
+        return WgmmaShape(64, 2, 0, 3 * plan.kstage * row + 1024, 5 * plan.kstage * row + 1024)
+    if form not in TF32_FORMS:
+        raise ValueError(f"wgmma_shape: no tensor-core form {form!r}")
+    phase_a = 4 * (64 + 2 * 32) * plan.kstage
+    return WgmmaShape(32, 2, 1, phase_a + 4 * plan.kn * 32 + 1024,
+                      phase_a + 2 * 4 * plan.kn * 32 + 1024)
+
+
 def stage_w_bf16_plain(W, bm, plan: WgmmaPlan):
     """Plain version of the W copy of the tensor-core passes: ``(..., kstage,
     Mps)`` bf16, column ``32 w + b`` holding W's data row of bit ``b`` of word
@@ -502,10 +549,103 @@ def stage_bf16(W, H, bm: int, form: str = "bf16r"):
     return wst, hst, hcst
 
 
+def phase_b_order(n: int) -> torch.Tensor:
+    """Logical index of each physical position of a TF32 phase-B copy's rows
+    of ``n`` values (``n % 8 == 0``): position ``8 g + j`` holds ``8 g +
+    SLOT8[j]``."""
+    if n % 8:
+        raise ValueError(f"phase_b_order: {n} is not a multiple of 8")
+    return (torch.arange(n).reshape(-1, 8)[:, list(SLOT8)]).reshape(n)
+
+
+def stage_tf32_plain(W, H, bm, plan: WgmmaPlan):
+    """Plain version of the TF32 copies of the tensor-core passes, each
+    TF32-rounded (:func:`tiers.round_tf32`) float32 with ``W``'s leading
+    axes, zero beyond ``k`` and ``Mp``/``Np``: ``(W^T (Mps, kstage) in
+    bit-plane order (:func:`bitplane_rows`), W's phase-B copy (kstage, Mps),
+    H^T (Nps, kstage), H's and 1 - H's phase-B copies (kstage, Nps))``, the
+    phase-B copies' columns in :func:`phase_b_order` and 1 - H by
+    :func:`tiers.complement` under ``"tf32r"``, ``round(1 - h)``."""
+    *lead, k, Mp = W.shape
+    Np = H.shape[-1]
+    f32 = dict(dtype=torch.float32, device=W.device)
+    w = torch.zeros((*lead, plan.kstage, plan.Mps), **f32)
+    w[..., :k, :Mp] = tiers.round_tf32(W[..., bitplane_rows(Mp, bm, W.device)])
+    h, hc = (torch.zeros((*lead, plan.kstage, plan.Nps), **f32) for _ in range(2))
+    h[..., :k, :Np] = tiers.round_tf32(H)
+    hc[..., :k, :Np] = tiers.complement(H, "tf32r")
+    wk, hk, hck = (t[..., phase_b_order(t.shape[-1]).to(W.device)] for t in (w, h, hc))
+    return (w.transpose(-1, -2).contiguous(), wk, h.transpose(-1, -2).contiguous(), hk, hck)
+
+
+def stage_tf32(W, H, bm: int):
+    """The TF32 copies a tensor-core pass of the ``"tf32r"`` form makes
+    (:func:`stage_tf32_plain`'s five): the staging kernels on CUDA tensors
+    (one launch of ``nbmf_stage_tf32``), their plain version on the CPU.
+    The passes stage inside their own entry points (the H pass the first
+    three, the W pass W^T, H^T and the last two); this serves checking the
+    staging alone."""
+    k, Mp = W.shape[-2:]
+    plan = plan_wgmma(k, Mp, H.shape[-1])
+    if W.device.type == "cpu":
+        return stage_tf32_plain(W, H, bm, plan)
+    from ._build import load_library
+
+    lanes = _check_cuda_operands("stage_tf32", W, H, None, None, bm, batched=True)
+    lead = tuple(W.shape[:-2])
+    f32 = dict(dtype=torch.float32, device=W.device)
+    copies = (torch.empty((*lead, plan.Mps, plan.kstage), **f32),
+              torch.empty((*lead, plan.kstage, plan.Mps), **f32),
+              torch.empty((*lead, plan.Nps, plan.kstage), **f32),
+              *(torch.empty((*lead, plan.kstage, plan.Nps), **f32) for _ in range(2)))
+    lib = load_library()
+    err = lib.nbmf_stage_tf32(W.data_ptr(), H.data_ptr(), *(t.data_ptr() for t in copies), k, Mp,
+                              H.shape[-1], bm, lanes or 1, W.device.index or 0,
+                              torch.cuda.current_stream(W.device).cuda_stream)
+    _raise_on_error(lib, "stage_tf32", err)
+    return copies
+
+
+# The TF32 passes' instances by entry point, as nbmf_tf32_occupancy_* numbers them.
+_TF32_OCCUPANCY = (("nbmf_tf32_occupancy_packed", ("hloss_terms_packed", "w_terms_packed")),
+                   ("nbmf_tf32_occupancy_dense", ("hloss_terms", "h_terms", "loglik_sum",
+                                                  "w_terms")))
+
+
+def tf32_occupancy(ranks=(32, 64, 128, 256)) -> dict:
+    """``{(pass, k, second): (blocks per SM, shared memory bytes)}`` of the
+    TF32 tensor-core instance each pass launches for rank ``k`` with
+    (``second``) and without its second operand, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives it on the
+    current card.  Needs the card."""
+    import ctypes
+
+    from ._build import load_library
+
+    lib = load_library()
+    out = {}
+    for entry, passes in _TF32_OCCUPANCY:
+        for index, name in enumerate(passes):
+            for k in ranks:
+                for second in (False, True):
+                    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+                    err = getattr(lib, entry)(index, k, int(second), ctypes.addressof(blocks),
+                                              ctypes.addressof(smem))
+                    _raise_on_error(lib, entry, err)
+                    out[(name, k, second)] = (blocks.value, smem.value)
+    return out
+
+
 def wgmma_entry(entry: str) -> bool:
-    """Whether a pass's C entry point is a tensor-core form, which takes the
-    bf16 copies as scratch (:func:`plan_wgmma`)."""
+    """Whether a pass's C entry point is a bf16 tensor-core form, which takes
+    the bf16 copies as scratch (:func:`plan_wgmma`)."""
     return entry.startswith("nbmf_") and entry.rsplit("_", 1)[-1] in WGMMA_FORMS
+
+
+def tf32_entry(entry: str) -> bool:
+    """Whether a pass's C entry point is the TF32 tensor-core form, which
+    takes the TF32 copies as scratch (:func:`stage_tf32_plain` lists them)."""
+    return entry.startswith("nbmf_") and entry.rsplit("_", 1)[-1] in TF32_FORMS
 
 
 def _raise_on_error(lib, who, err):
@@ -534,8 +674,9 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
     """Allocate the outputs and scratch of an H-pass entry point (packed or
     dense; with ``terms=False`` the ll-only one, with ``loss=False`` one
     without ll), the row split's partials (:func:`plan_h_split`) and W's
-    bit-plane copy (for a tensor-core form the bf16 copies of W and H,
-    :func:`plan_wgmma`), and launch it on the current stream.  Returns
+    bit-plane copy (for a tensor-core form the bf16 copies of W and H, or
+    the TF32 copies W^T, W's phase-B copy and H^T: :func:`plan_wgmma`), and
+    launch it on the current stream.  Returns
     ``(Num, Den, ll)``, ``Num``/``Den`` None without terms, ``ll`` None
     without loss.  ``y`` may be None for an entry that reads no data.
 
@@ -558,11 +699,15 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
         ll = torch.empty(lead, **f32)
         ll_part = torch.empty(lanes * -(-Np // H_COLS) * plan.nsplit, dtype=torch.float64,
                               device=dev)
+    wg = plan_wgmma(k, Mp, Np) if wgmma_entry(entry) or tf32_entry(entry) else None
     if wgmma_entry(entry):  # the bf16 copies of W and H
-        wg = plan_wgmma(k, Mp, Np)
         bf = dict(dtype=torch.bfloat16, device=dev)
         staged = (torch.empty((lanes, wg.kstage, wg.Mps), **bf),
                   torch.empty((lanes, wg.kstage, wg.Nps), **bf))
+    elif tf32_entry(entry):  # W^T, W's phase-B copy, H^T
+        staged = (torch.empty((lanes, wg.Mps, wg.kstage), **f32),
+                  torch.empty((lanes, wg.kstage, wg.Mps), **f32),
+                  torch.empty((lanes, wg.Nps, wg.kstage), **f32))
     else:  # W's bit-plane copy
         staged = (torch.empty((lanes, k, Mp), **f32),)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -582,7 +727,8 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
 
 def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
     """Allocate ``T (n_out k, Mp)``, the split scratch (:func:`plan_w_split`)
-    and, for a tensor-core form, the bf16 copies of W, H and 1 - H
+    and, for a tensor-core form, the bf16 copies of W, H and 1 - H, or the
+    TF32 copies W^T, H^T and H's and 1 - H's phase-B copies
     (:func:`plan_wgmma`), and launch a W-pass entry point on the current
     stream; ``y`` may be None for an entry that reads no data.  The kernel
     copies ``H``'s and the operands' rows as 16-byte vectors.  A leading lane
@@ -603,11 +749,16 @@ def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
     part = None if plan.scratch is None else torch.empty((lanes, *plan.scratch),
                                                          dtype=torch.float32, device=dev)
     staged = ()
+    wg = plan_wgmma(k, Mp, Np) if wgmma_entry(entry) or tf32_entry(entry) else None
     if wgmma_entry(entry):  # the bf16 copies of W, H and 1 - H
-        wg = plan_wgmma(k, Mp, Np)
         bf = dict(dtype=torch.bfloat16, device=dev)
         staged = (torch.empty((lanes, wg.kstage, wg.Mps), **bf),
                   *(torch.empty((lanes, wg.kstage, wg.Nps), **bf) for _ in range(2)))
+    elif tf32_entry(entry):  # W^T, H^T, H's and 1 - H's phase-B copies
+        f32 = dict(dtype=torch.float32, device=dev)
+        staged = (torch.empty((lanes, wg.Mps, wg.kstage), **f32),
+                  torch.empty((lanes, wg.Nps, wg.kstage), **f32),
+                  *(torch.empty((lanes, wg.kstage, wg.Nps), **f32) for _ in range(2)))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, entry)(
         W.data_ptr(), H_new.data_ptr(), _ptr(y), _ptr(y2), T.data_ptr(), _ptr(part),

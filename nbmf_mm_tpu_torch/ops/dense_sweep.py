@@ -25,12 +25,12 @@ bitwise, on the CPU and on the card.
 Operand forms (:mod:`~nbmf_mm_tpu_torch.ops.tiers`): every wrapper takes
 ``precision=`` and a bf16 ``Ym`` (with ``Yc``/``Ym2`` bf16 too).  f32 data
 under ``None``/``"highest"`` runs the f32 instance (``csrc/sweep_dense.cu``);
-``"high"`` the instance that rounds every product operand to TF32
-(``sweep_tiers_tf32r.cu``); ``"default"`` the tensor-core instance whose
-product operands are all bf16 (``sweep_tiers_bf16r.cu``, wgmma kernels of
-``sweep_wgmma.cuh``); bf16 data, whatever ``precision`` says, the bf16-data
-instance on the tensor cores (``sweep_bf16.cu``), with the W pass's ``1 - h``
-formed from the bf16 ``h``.  A bf16 ``Ym`` on the card is never
+``"high"`` the tensor-core instance whose product operands are all TF32
+(``sweep_wgmma_tf32_dense.cu``, wgmma kernels of ``sweep_wgmma_tf32.cuh``);
+``"default"`` the tensor-core instance whose product operands are all bf16
+(``sweep_tiers_bf16r.cu``, wgmma kernels of ``sweep_wgmma.cuh``); bf16 data,
+whatever ``precision`` says, the bf16-data instance on the tensor cores
+(``sweep_bf16.cu``), with the W pass's ``1 - h`` formed from the bf16 ``h``.  A bf16 ``Ym`` on the card is never
 widened to run another instance.  The plain versions round the same
 operands by the same rules.
 

@@ -1,7 +1,7 @@
 """The port's product precision tiers and its bf16-data mode: one definition
-shared by the CUDA kernels (``csrc/sweep_kernels.cuh``'s ``Round``, the
-bf16 staging of ``csrc/sweep_wgmma.cuh``), their plain PyTorch versions and
-the plain loop.
+shared by the CUDA kernels (the bf16 staging of ``csrc/sweep_wgmma.cuh``,
+the TF32 staging and ``round_tf32`` of ``csrc/sweep_wgmma_tf32.cuh``), their
+plain PyTorch versions and the plain loop.
 
 The JAX package threads ``precision=`` into every matmul, and on the TPU the
 tier decides how the MXU rounds the operands of each product.  The port makes
@@ -22,12 +22,16 @@ card (up to the order of the fp32 sums):
 ========================  ===========================  ======================================
 
 The port's default stays IEEE fp32: ``precision=None`` means ``"highest"``,
-not DEFAULT as on the JAX package's Pallas path.  The TF32 tier runs on
-the CUDA cores, the same FMAs plus the roundings; the bf16 forms (DEFAULT and
-the bf16-data mode) run their products on the tensor cores (``wgmma``, the
-kernels of ``csrc/sweep_wgmma.cuh``), whose ``WH`` sums the plain versions
-form the same way on the card (:func:`wh_product`).  On the CPU the JAX
-package computes every tier in fp32; the port rounds there too.
+not DEFAULT as on the JAX package's Pallas path.  The reduced tiers run
+their products on the tensor cores (``wgmma``): the bf16 forms (DEFAULT and
+the bf16-data mode) in the kernels of ``csrc/sweep_wgmma.cuh``, whose ``WH``
+sums the plain versions form the same way on the card (:func:`wh_product`),
+and the TF32 tier (HIGH) in those of ``csrc/sweep_wgmma_tf32.cuh``, whose
+plain versions keep an fp32 ``WH``: a TF32 operand that rounds the other way
+moves a product by 8 times less than a bf16 one, and every ``_tf32r`` form
+stays within 1e-4 of max |plain| at every shape ``chip_smoke.py`` checks.
+On the CPU the JAX package computes every tier in fp32; the port rounds
+there too.
 
 The bf16-data mode (``dtype="bfloat16"``) stores the data operands ``Ym``,
 ``Ym2`` and ``Yc`` bf16 and keeps factors, updates and losses float32.  The
@@ -127,7 +131,10 @@ def wh_product(A: torch.Tensor, B: torch.Tensor, form: str) -> torch.Tensor:
     other way, which over a 64-row serving chunk moves ``W P`` by more than
     1e-4 of its largest entry.  Elsewhere (every form on the CPU, f32 and
     TF32 on the card, and the products after ``p`` and ``q``, where nothing
-    is rounded again) the fp32 matmul of the same values."""
+    is rounded again) the fp32 matmul of the same values: for TF32 no GEMM
+    of the library sums as the tensor-core kernels do (cuBLAS's TF32 product
+    and its fp32 product both differ from their ``WH`` at K = 128), and the
+    TF32 flips stay inside the bar."""
     if A.is_cuda and form in ("bf16r", "bf16d"):
         return torch.mm(A.to(torch.bfloat16), B.to(torch.bfloat16), out_dtype=torch.float32)
     return A @ B

@@ -11,8 +11,8 @@ script imports both from there, builds that tree's kernels and prints one
 name and power limit.  With ``--forms`` it also prints one ``AB_FORMS`` line:
 the ms per call of every operand form of the passes
 (``chip_smoke.tier_calls``: the bf16 and TF32 forms of the six entry points)
-and the fused loops' ms/sweep under ``precision="default"`` and on bf16
-data.  To compare a change with its parent, run parent,
+and the fused loops' ms/sweep under ``precision="default"`` and ``"high"``
+and on bf16 data.  To compare a change with its parent, run parent,
 change, change, parent (and more turns) as separate processes inside one
 call on the card, and compare medians.  Needs one CUDA card.
 """
@@ -64,6 +64,10 @@ def main(argv=None) -> None:
                                                              precision="default"),
                  "loop_dense_default": sm.loop_ms_per_sweep("dense", P, k, False, card, cs,
                                                             precision="default"),
+                 "loop_binary_high": sm.loop_ms_per_sweep("binary", X, k, True, card, cs,
+                                                          precision="high"),
+                 "loop_dense_high": sm.loop_ms_per_sweep("dense", P, k, False, card, cs,
+                                                         precision="high"),
                  "loop_dense_bf16": sm.loop_ms_per_sweep("dense", P, k, False, card, cs,
                                                          bf16=True)}
         print("AB_FORMS", args.label, " ".join(f"{name}={t:.4f}" for name, t in forms.items()),

@@ -298,20 +298,24 @@ def test_no_port_source_imports_jax_or_the_jax_package(path):
 # ------------------------- the operand forms' entry points and the device
 def test_every_operand_form_entry_point_has_a_source_and_a_counter():
     """Each form's C entry point in ``_SIGNATURES`` is defined by a source
-    of ``csrc/`` (through the form macros, which the build compiles one
-    ``nvcc`` each: the tensor-core ones for the bf16 forms) and counted
-    under its own name."""
+    of ``csrc/`` (the bf16 forms through the tensor-core form macros, the
+    TF32 form by name through the entry macros of ``sweep_wgmma_tf32.cuh``
+    or in full; the build compiles one ``nvcc`` each) and counted under its
+    own name."""
     csrc = pathlib.Path(_build.__file__).resolve().parent / "csrc"
     sources = {p.name: p.read_text() for p in csrc.glob("*.cu")}
     forms = [name for name in _build._SIGNATURES if name.rpartition("_")[2] in tiers.FORMS]
     assert len(forms) == 2 * 2 + 4 * 3
     for name in forms:
         base, _, form = name.rpartition("_")
-        macro = "NBMF_PACKED_FORM" if base.endswith("_packed") else "NBMF_DENSE_FORM"
-        if form in cs.WGMMA_FORMS:
-            macro = macro.replace("NBMF_", "NBMF_WGMMA_")
-        assert sum(f"{macro}(_{form}," in text or f"{macro}(_{form})" in text
-                   for text in sources.values()) == 1, name
+        if form in cs.TF32_FORMS:
+            assert sum(f"ENTRY({name}," in text or f"int {name}(" in text
+                       for text in sources.values()) == 1, name
+        else:
+            macro = "NBMF_WGMMA_PACKED_FORM" if base.endswith("_packed") else (
+                "NBMF_WGMMA_DENSE_FORM")
+            assert sum(f"{macro}(_{form}," in text or f"{macro}(_{form})" in text
+                       for text in sources.values()) == 1, name
         counter = name.removeprefix("nbmf_").replace("_dense", "")
         assert counter in (cs.LAUNCHES if base.endswith("_packed") else ds.LAUNCHES), counter
 

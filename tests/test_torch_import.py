@@ -47,6 +47,7 @@ def test_import_leaves_jax_out():
         "nbmf_mm_tpu_torch.tools.bench_diag, nbmf_mm_tpu_torch.tools.bench_stream, "
         "nbmf_mm_tpu_torch.tools.bench_vpu, nbmf_mm_tpu_torch.tools.sass_diff, nbmf_mm_tpu_torch.tools.wpass_tune, "
         "nbmf_mm_tpu_torch.tools.hpass_tune, nbmf_mm_tpu_torch.tools.ab_time, "
+        "nbmf_mm_tpu_torch.tools.wgmma_tf32_probe, "
         "nbmf_mm_tpu_torch.parallel, "
         "nbmf_mm_tpu_torch.parallel.restarts, nbmf_mm_tpu_torch.parallel.grid; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

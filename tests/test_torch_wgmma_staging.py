@@ -327,6 +327,16 @@ def test_wrappers_reach_their_entry_points_with_their_scratch(stub, form):
                 want.append(((1, plan.kstage, plan.Nps), torch.bfloat16))
             assert bf16 == want
             assert ((1, k, Mp), torch.float32) not in shapes  # no f32 bit-plane copy
+        elif form in cs.TF32_FORMS:  # the TF32 copies in both orders, in argument order
+            assert not bf16
+            a_copy = {"W": (1, plan.Mps, plan.kstage), "H": (1, plan.Nps, plan.kstage)}
+            b_copy = {"W": (1, plan.kstage, plan.Mps), "H": (1, plan.kstage, plan.Nps)}
+            if name.startswith("w_terms"):  # W^T, H^T, H's and 1 - H's phase-B copies
+                want = [a_copy["W"], a_copy["H"], b_copy["H"], b_copy["H"]]
+            else:  # W^T, W's phase-B copy, H^T
+                want = [a_copy["W"], b_copy["W"], a_copy["H"]]
+            assert [s for s, dtype in shapes if len(s) == 3 and dtype == torch.float32] == want
+            assert ((1, k, Mp), torch.float32) not in shapes  # no bit-plane copy
         else:
             assert not bf16
             if not name.startswith("w_terms"):
@@ -372,7 +382,13 @@ def test_signatures_of_the_bf16_forms():
                 continue
             assert sig[f"nbmf_{base}_{form}"] == (
                 sig[f"nbmf_{base}"][:11] + [_build._P] + sig[f"nbmf_{base}"][11:])
-            assert sig[f"nbmf_{base}_tf32r"] == sig[f"nbmf_{base}"]
+            # the TF32 form: wperm (index 10) replaced by wt, wk, ht
+            assert sig[f"nbmf_{base}_tf32r"] == (
+                sig[f"nbmf_{base}"][:10] + [_build._P] * 3 + sig[f"nbmf_{base}"][11:])
+    assert sig["nbmf_w_terms_dense_tf32r"] == sig["nbmf_w_terms_dense"][:6] + [_build._P] * 4 + \
+        sig["nbmf_w_terms_dense"][6:]
+    assert sig["nbmf_loglik_sum_dense_tf32r"] == sig["nbmf_loglik_sum_dense"][:6] + \
+        [_build._P] * 3 + sig["nbmf_loglik_sum_dense"][7:]
     assert sig["nbmf_w_terms_dense_bf16d"] == sig["nbmf_w_terms_dense"][:6] + [_build._P] * 3 + \
         sig["nbmf_w_terms_dense"][6:]
     assert sig["nbmf_loglik_sum_dense_bf16r"] == sig["nbmf_loglik_sum_dense"][:7] + [_build._P] + \
