@@ -86,12 +86,28 @@ runs); and each form's ms beside its float32 instance and its bound, the
 fused loops per tier and on bf16 data, and the tier's serving requests beside
 float32's.
 
+Phase 11 is checkpoint, utils and baselines, each path with the launch
+counters zeroed before and read after: ``fit_checkpointed`` at the headline
+in four segments of 25 sweeps (four checkpoint writes) against one
+100-sweep fit, at the bars of ``tests/test_torch_checkpoint.py``, with the
+wall time of both; ``save_model`` -> ``load_model(device="cuda")`` and the
+8192-row request's ``transform``, ``score`` and ``perplexity``, bitwise the
+original's; a ``device_results=True`` model saved from its tensors;
+``resume_fit`` from a 50-sweep save against the same fit; a headline solve
+under ``nan_checks()`` bitwise the one without, with the ms/sweep of both,
+and a NaN prior that raises ``FloatingPointError``; the paper's 10-init
+protocol of ``NBMFEM`` (K=16) and ``LogisticPCA`` (K=2) on the animals split
+in float64 against the stored artifacts (3% and 2%), one seed of each
+against the CPU; and the JAX package's option names on the card
+(``backend="pallas"`` bitwise ``"fused"``, ``block_m`` ignored,
+``pallas_interpret=True`` raising) with ``nbmf_mm_compat_torch.NBMF``.
+
 Each phase prints one line or more; any failure raises and the script exits
 non-zero.  The last line is a JSON object with ``"ok": true`` and the
 device; the line before it lists the kernels.
 
-Imports torch, numpy, scipy.sparse and nbmf_mm_tpu_torch only.  Needs one
-CUDA card.
+Imports torch, numpy, scipy.sparse, nbmf_mm_tpu_torch and
+nbmf_mm_compat_torch only.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -258,6 +274,27 @@ TIER_DESCENT = 2e-3
 # The 100-sweep headline solve's final loss under a reduced tier against the
 # float32 solve's, relative.
 TIER_LOSS_REL = 1e-3
+# Phase 11: checkpoint, utils and baselines.  A checkpointed fit of
+# CKPT_SWEEPS sweeps in segments of CKPT_EVERY, and a resume from half of
+# them, against one uninterrupted fit: max |dW|, max |dH| and the largest
+# relative loss deviation, the bars of tests/test_torch_checkpoint.py
+# (SEGMENT_BARS; float64 there shows that the re-normalization at segment
+# starts is the only source of deviation, at 1e-15).
+CKPT_SWEEPS = 100
+CKPT_EVERY = 25
+CKPT_BARS = dict(W=1e-5, H=1e-5, loss=1e-6)
+NAN_SWEEPS = 50
+# The paper's 10-init test protocol on the committed animals split
+# (tests/test_baselines.py::TestArtifactQuality): NBMF-EM at K=16 within 3%
+# of the stored mean test NLL in at most 5 iterations, logPCA at K=2 within 2%.
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+BASELINE_SEEDS = 10
+BASELINES = {"NBMF-EM": dict(k=16, max_iter=500, rel=0.03, max_n_iter=5),
+             "logPCA": dict(k=2, max_iter=1000, rel=0.02, max_n_iter=None)}
+# One seed of each baseline in float64 on the card against the CPU: the same
+# n_iter, the losses within this relative bar (summation orders and the SVD
+# differ; the CPU tests hold the cores to the JAX package's at 1e-12).
+BASELINE_DEVICE_REL = 1e-10
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2247,6 +2284,285 @@ def tiers_phase(NBMF, solve, FoldInServer, grid_solve, X, P, lastfm, lastfm_soft
     return launches, tier_times
 
 
+def nonzero(counts: dict) -> dict:
+    return {name: n for name, n in counts.items() if n}
+
+
+def deviation(a, b) -> dict:
+    """max |dW|, max |dH| and the largest relative loss deviation of two
+    fitted estimators with host attributes."""
+    la, lb = np.asarray(a.loss_curve_), np.asarray(b.loss_curve_)
+    return {"W": float(np.abs(np.asarray(a.W_) - np.asarray(b.W_)).max()),
+            "H": float(np.abs(np.asarray(a.components_) - np.asarray(b.components_)).max()),
+            "loss": float((np.abs(la - lb) / np.abs(lb)).max())}
+
+
+def within_bars(dev: dict) -> bool:
+    return all(dev[key] <= CKPT_BARS[key] for key in CKPT_BARS)
+
+
+def checkpoint_paths(NBMF, X, request, workdir, total, card, cs, ds):
+    """Phase 11 (a)-(d): ``fit_checkpointed``, ``save_model`` ->
+    ``load_model`` -> ``transform``/``score``/``perplexity``, a
+    ``device_results=True`` model saved and loaded, and ``resume_fit``, each
+    with the counters zeroed before and added to ``total`` after."""
+    from nbmf_mm_tpu_torch.utils import checkpoint as ckpt
+
+    k = HEADLINE["k"]
+    params = dict(n_components=k, max_iter=CKPT_SWEEPS, tol=0.0, random_state=0,
+                  dtype="float32", device=DEV)
+    writes = []
+    real_save = ckpt.save_checkpoint
+
+    def counting_save(*args, **kwargs):
+        writes.append(int(args[4]))
+        return real_save(*args, **kwargs)
+
+    path = workdir / "segments.npz"
+    zero_counts(cs, ds)
+    ckpt.save_checkpoint = counting_save
+    try:
+        seg, seg_s = timed(lambda: ckpt.fit_checkpointed(NBMF(**params), X, path,
+                                                         every=CKPT_EVERY))
+    finally:
+        ckpt.save_checkpoint = real_save
+    seg_counts = read_counts(cs, ds)
+    add_counts(total, cs, ds)
+    zero_counts(cs, ds)
+    ref, ref_s = timed(lambda: NBMF(**params).fit(X))
+    add_counts(total, cs, ds)
+    dev = deviation(seg, ref)
+    stored = ckpt.load_checkpoint(path)
+    n_seg = CKPT_SWEEPS // CKPT_EVERY
+    print(f"checkpointed fit: fit_checkpointed(NBMF(max_iter={CKPT_SWEEPS}, tol=0), every="
+          f"{CKPT_EVERY}) {X.shape[0]}x{X.shape[1]} k={k}: n_iter {seg.n_iter_}, "
+          f"{len(seg.loss_curve_)} losses, checkpoint writes at {writes}; against one "
+          f"uninterrupted fit: max |dW| {dev['W']:.3e}, max |dH| {dev['H']:.3e}, loss rel "
+          f"{dev['loss']:.3e} (bars {CKPT_BARS}); wall {seg_s:.2f} s segmented against "
+          f"{ref_s:.2f} s ({1e3 * (seg_s - ref_s) / n_seg:.1f} ms of re-staging per segment); "
+          f"launches {nonzero(seg_counts)} [{card}]", flush=True)
+    check(seg.n_iter_ == CKPT_SWEEPS and len(seg.loss_curve_) == CKPT_SWEEPS,
+          f"the checkpointed fit ran {seg.n_iter_} sweeps")
+    check(writes == [CKPT_EVERY * (i + 1) for i in range(n_seg)],
+          f"checkpoint writes at {writes}")
+    check(stored["n_iter"] == CKPT_SWEEPS and len(stored["losses"]) == CKPT_SWEEPS,
+          "the last checkpoint does not hold the whole fit")
+    check(within_bars(dev), f"the checkpointed fit deviates from the uninterrupted one: {dev}")
+    for name in ("hloss_terms_packed", "w_terms_packed"):
+        check(seg_counts[name] >= CKPT_SWEEPS, f"{name} launched {seg_counts[name]} times")
+
+    # (b) save_model -> load_model(device="cuda"): serving is bitwise the
+    # original's.
+    path = workdir / "model.npz"
+    ckpt.save_model(path, ref)
+    loaded = ckpt.load_model(path, device=DEV)
+    zero_counts(cs, ds)
+    served = []
+    for est in (ref, loaded):
+        W, W_s = timed(lambda: est.transform(request))
+        score = est.score(request)
+        served.append((W, score, est.perplexity(request), W_s))
+    serve_counts = read_counts(cs, ds)
+    add_counts(total, cs, ds)
+    (W0, s0, p0, t0), (W1, s1, p1, t1) = served
+    same = np.array_equal(W0, W1) and s0 == s1 and p0 == p1
+    print(f"save and load: save_model -> load_model(device={DEV!r}); {request.shape[0]}-row "
+          f"transform {t0:.3f} s / {t1:.3f} s, score {s0:.9f} / {s1:.9f}, perplexity "
+          f"{p0:.9f} / {p1:.9f}; bitwise equal {same}; launches {nonzero(serve_counts)} "
+          f"[{card}]",
+          flush=True)
+    check(same, "the loaded model serves differently from the original")
+    check(np.array_equal(loaded.components_, ref.components_) and loaded.n_iter_ == ref.n_iter_
+          and loaded.loss_curve_ == list(ref.loss_curve_), "the loaded model's state differs")
+    check(serve_counts["w_terms_packed"] >= 6 * 50,
+          f"transform launched K2 {serve_counts['w_terms_packed']} times")
+
+    # (c) device_results=True: tensors on the card are saved from the host.
+    zero_counts(cs, ds)
+    dev_est = NBMF(**dict(params, max_iter=10), solver_options={"device_results": True}).fit(X)
+    add_counts(total, cs, ds)
+    path = workdir / "device_results.npz"
+    ckpt.save_model(path, dev_est)
+    stored = ckpt.load_checkpoint(path)
+    dev_loaded = ckpt.load_model(path, device=DEV)
+    on_card = all(isinstance(t, torch.Tensor) and t.is_cuda
+                  for t in (dev_est.W_, dev_est.components_, dev_est.loss_curve_))
+    same = (np.array_equal(stored["W"], dev_est.W_.cpu().numpy())
+            and np.array_equal(stored["H"], dev_est.components_.cpu().numpy())
+            and stored["losses"] == [float(x) for x in dev_est.loss_curve_.cpu().numpy()]
+            and np.array_equal(dev_loaded.components_, stored["H"]))
+    print(f"device_results=True: fitted attributes on the card {on_card}; saved arrays equal "
+          f".cpu().numpy() of its tensors {same} [{card}]", flush=True)
+    check(on_card and same, "the device_results model did not save its tensors")
+
+    # (d) resume_fit from a half-way save_model.
+    half = CKPT_SWEEPS // 2
+    zero_counts(cs, ds)
+    first = NBMF(**dict(params, max_iter=half)).fit(X)
+    path = workdir / "half.npz"
+    ckpt.save_model(path, first)
+    resumed, resume_s = timed(lambda: ckpt.resume_fit(path, X, max_iter=half, device=DEV))
+    add_counts(total, cs, ds)
+    dev = deviation(resumed, ref)
+    print(f"resume: resume_fit from a {half}-sweep save_model with max_iter={half}: n_iter "
+          f"{resumed.n_iter_}, {len(resumed.loss_curve_)} losses, {resume_s:.2f} s; against "
+          f"the uninterrupted fit: max |dW| {dev['W']:.3e}, max |dH| {dev['H']:.3e}, loss rel "
+          f"{dev['loss']:.3e} [{card}]", flush=True)
+    check(resumed.n_iter_ == CKPT_SWEEPS and len(resumed.loss_curve_) == CKPT_SWEEPS,
+          f"the resumed fit counts {resumed.n_iter_} sweeps")
+    check(within_bars(dev), f"the resumed fit deviates from the uninterrupted one: {dev}")
+
+
+def nan_check_paths(solve, X, total, card, cs, ds):
+    """Phase 11 (e): a headline solve under ``nan_checks()`` equals the one
+    without, bitwise; a NaN prior raises ``FloatingPointError`` on the card.
+    The ms/sweep of both is the slope between solves of ``NAN_SWEEPS / 5``
+    and ``NAN_SWEEPS`` sweeps on the host clock (set-up cancels)."""
+    from nbmf_mm_tpu_torch.utils import nan_checks
+
+    kw = dict(n_components=HEADLINE["k"], tol=0.0, random_state=0, dtype="float32",
+              device=DEV)
+    short = NAN_SWEEPS // 5
+    zero_counts(cs, ds)
+    solve(X, max_iter=2, **kw)  # warm-up
+    runs = {}
+    for flag in (False, True):
+        for sweeps in (short, NAN_SWEEPS):
+            if flag:
+                with nan_checks():
+                    runs[flag, sweeps] = timed(lambda: solve(X, max_iter=sweeps, **kw))
+            else:
+                runs[flag, sweeps] = timed(lambda: solve(X, max_iter=sweeps, **kw))
+    add_counts(total, cs, ds)
+    per = {flag: 1e3 * (runs[flag, NAN_SWEEPS][1] - runs[flag, short][1]) / (NAN_SWEEPS - short)
+           for flag in (False, True)}
+    same = same_result(runs[True, NAN_SWEEPS][0], runs[False, NAN_SWEEPS][0])
+    raised = ""
+    zero_counts(cs, ds)
+    with nan_checks():
+        try:
+            solve(X, max_iter=3, alpha=float("nan"), **kw)
+        except FloatingPointError as e:
+            raised = str(e)
+    add_counts(total, cs, ds)
+    print(f"nan_checks: headline solve: {per[False]:.3f} ms/sweep off, {per[True]:.3f} on "
+          f"({100 * (per[True] / per[False] - 1):+.1f}%; slope of {short} and {NAN_SWEEPS} "
+          f"sweeps, host clock); bitwise equal {same}; a NaN prior raised FloatingPointError: "
+          f"{raised!r} [{card}]", flush=True)
+    check(same, "a solve under nan_checks differs from the one without")
+    check("fused loop" in raised and "sweep 0" in raised, "the NaN solve did not raise")
+
+
+def obs_nll(Y, P, mask) -> float:
+    P = np.clip(P, 1e-12, 1 - 1e-12)
+    return float(-np.sum(mask * (Y * np.log(P) + (1 - Y) * np.log(1 - P))) / mask.sum())
+
+
+def baselines_phase(card):
+    """Phase 11 (f): the paper's 10-init protocol on the animals split with
+    both baselines on the card (float64), against the stored artifacts; one
+    seed of each on the card against the CPU."""
+    from nbmf_mm_tpu_torch.models import NBMFEM, LogisticPCA
+
+    Y = np.load(os.path.join(DATA_DIR, "animals.npz"))["Y"].astype(float)
+    split = np.load(os.path.join(DATA_DIR, "magron2022", "animals_split.npz"))
+    train, test = split["train_mask"].astype(float), split["test_mask"].astype(float)
+    classes = {"NBMF-EM": NBMFEM, "logPCA": LogisticPCA}
+    artifacts = {"NBMF-EM": "NBMF-EM_test_init.npz", "logPCA": "logPCA_test_init.npz"}
+    for name, spec in BASELINES.items():
+        ref_mean = float(np.load(os.path.join(DATA_DIR, "magron2022", "animals",
+                                              artifacts[name]))["test_pplx"].mean())
+        make = lambda seed, device: classes[name](
+            n_components=spec["k"], max_iter=spec["max_iter"], tol=1e-5, random_state=seed,
+            dtype="float64", device=device)
+        nlls, iters = [], []
+        t0 = time.perf_counter()
+        for seed in range(BASELINE_SEEDS):
+            est = make(seed, DEV).fit(Y, mask=train)
+            P = est.reconstruction()
+            nlls.append(obs_nll(Y, P, test))
+            iters.append(est.n_iter_)
+        wall = time.perf_counter() - t0
+        ours = float(np.mean(nlls))
+        rel_err = abs(ours - ref_mean) / ref_mean
+        card_est, cpu_est = make(0, DEV).fit(Y, mask=train), make(0, "cpu").fit(Y, mask=train)
+        lc, lh = np.asarray(card_est.loss_curve_), np.asarray(cpu_est.loss_curve_)
+        loss_dev = (float((np.abs(lc - lh) / np.abs(lh)).max())
+                    if lc.shape == lh.shape else float("inf"))
+        print(f"baseline {name}: {BASELINE_SEEDS}-init protocol on the animals split, K="
+              f"{spec['k']}, float64 on the card: mean test NLL {ours:.6f} against the "
+              f"artifact's {ref_mean:.6f} ({100 * rel_err:.2f}%, bar {100 * spec['rel']:g}%), "
+              f"n_iter {iters}, {wall:.2f} s ({1e3 * wall / sum(iters):.2f} ms/iteration); seed "
+              f"0 on the card against the CPU: n_iter {card_est.n_iter_} / {cpu_est.n_iter_}, "
+              f"losses rel {loss_dev:.3e} (bar {BASELINE_DEVICE_REL:g}) [{card}]", flush=True)
+        check(rel_err < spec["rel"], f"{name}: the protocol misses the artifact by {rel_err:.4f}")
+        if spec["max_n_iter"] is not None:
+            check(max(iters) <= spec["max_n_iter"], f"{name}: n_iter {iters}")
+        check(card_est.n_iter_ == cpu_est.n_iter_ and loss_dev <= BASELINE_DEVICE_REL,
+              f"{name}: the card and the CPU disagree")
+
+
+def p7_on_the_card(solve, X, lastfm, total, card, cs, ds):
+    """Phase 11 (g): the JAX package's option names on the card."""
+    import nbmf_mm_compat_torch
+
+    kw = dict(n_components=HEADLINE["k"], max_iter=20, tol=0.0, random_state=0,
+              dtype="float32", device=DEV)
+    zero_counts(cs, ds)
+    pallas = solve(X, backend="pallas", **kw)
+    pallas_counts = read_counts(cs, ds)
+    add_counts(total, cs, ds)
+    zero_counts(cs, ds)
+    fused = solve(X, backend="fused", **kw)
+    tiles = solve(X, block_m=256, block_n=256, **kw)
+    add_counts(total, cs, ds)
+    raised = ""
+    try:
+        solve(X, pallas_interpret=True, **kw)
+    except ValueError as e:
+        raised = str(e)
+    zero_counts(cs, ds)
+    est = nbmf_mm_compat_torch.NBMF(n_components=8, max_iter=50, random_state=0).fit(lastfm)
+    compat_counts = read_counts(cs, ds)
+    add_counts(total, cs, ds)
+    print(f"P7 on the card: backend='pallas' equals 'fused' bitwise {same_result(pallas, fused)} "
+          f"(extras {pallas.extras}, launches {nonzero(pallas_counts)}); block_m=256 changes "
+          f"nothing "
+          f"{same_result(tiles, fused)}; pallas_interpret=True on cuda raised: {raised!r}; "
+          f"nbmf_mm_compat_torch.NBMF on lastfm: n_iter {est.n_iter_}, extras "
+          f"{est.solver_result_.extras} [{card}]", flush=True)
+    check(same_result(pallas, fused) and pallas.extras == fused.extras,
+          "backend='pallas' differs from 'fused'")
+    check(min(pallas_counts["hloss_terms_packed"], pallas_counts["w_terms_packed"]) >= 20,
+          f"backend='pallas' launched {pallas_counts}")
+    check(same_result(tiles, fused), "block_m changed the solve")
+    check("pallas_interpret=True" in raised, "pallas_interpret=True on cuda did not raise")
+    check(est.solver_result_.extras["backend"] == "fused" and np.isfinite(est.loss_)
+          and compat_counts["hloss_terms_packed"] > 0, "the compat shim's NBMF did not fit")
+
+
+def host_surface_phase(NBMF, solve, X, lastfm, request, card, cs, ds):
+    """Phase 11: checkpoint, utils and baselines.  Returns the launches of
+    the production kernels over the phase's paths."""
+    import shutil
+
+    total = {}
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_phase11"
+    workdir.mkdir(parents=True, exist_ok=True)
+    try:
+        checkpoint_paths(NBMF, X, request, workdir, total, card, cs, ds)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    nan_check_paths(solve, X, total, card, cs, ds)
+    baselines_phase(card)
+    p7_on_the_card(solve, X, lastfm, total, card, cs, ds)
+    print(f"checkpoint, utils and baselines: launches over phase 11's paths "
+          f"{ {name: total.get(name, 0) for name in PATH_KERNELS} } [{card}]", flush=True)
+    for name in ("hloss_terms_packed", "w_terms_packed"):
+        check(total.get(name, 0) > 0, f"{name} was never launched in phase 11")
+    return total
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no CUDA card")
@@ -2403,6 +2719,15 @@ def main() -> None:
     times.update(tier_times)
     print(f"precision tiers and bf16 data: {time.perf_counter() - t10:.1f} s [{card}]",
           flush=True)
+
+    # ------------------------------- 11. checkpoint, utils and baselines
+    t11 = time.perf_counter()
+    host_counts = host_surface_phase(NBMF, solve, X, lastfm, requests[SERVE_ROWS.index(8_192)],
+                                     card, cs, ds)
+    for name in PATH_KERNELS:
+        launches[name] += host_counts.get(name, 0)
+    print(f"phase 11: checkpoint, utils and baselines: {time.perf_counter() - t11:.1f} s "
+          f"[{card}]", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
     kernels = [

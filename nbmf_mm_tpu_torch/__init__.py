@@ -20,6 +20,11 @@ data staged once: the kernels take a leading lane axis on the factors
 (:mod:`nbmf_mm_tpu_torch.parallel`).  ``precision="default"``/``"high"``
 round every product operand to bf16 or TF32, and ``dtype="bfloat16"`` stores
 the data bf16, on every entry point (:mod:`nbmf_mm_tpu_torch.ops.tiers`).
+Fits checkpoint and resume through ``.npz`` files in the JAX package's format
+(:mod:`nbmf_mm_tpu_torch.utils.checkpoint`), and the paper's NBMF-EM and
+logPCA baselines are in :mod:`nbmf_mm_tpu_torch.models.baselines`.  With
+``NBMF_CACHE_DIR`` set, importing the package points the kernel build there
+(:mod:`nbmf_mm_tpu_torch.utils.cache`).
 
 Public surface: ``NBMF``/``NBMFMM``, :func:`solve`, :func:`nbmf_mm_solver`,
 :class:`SolverResult`, :class:`PackedMatrix`, :func:`pack_matrix`,
@@ -32,8 +37,11 @@ from .models.serving import FoldInServer, fold_in_fused
 from .ops.packed import PackedMatrix, pack_matrix, pack_matrix_chunked, pack_matrix_sparse
 from .parallel.grid import grid_solve
 from .solver.driver import SolverResult, nbmf_mm_solver, solve
+from .utils.cache import maybe_enable_compilation_cache as _maybe_cache
 
 __version__ = "0.1.0"
+
+_maybe_cache()
 
 __all__ = [
     "NBMFMM",

@@ -23,6 +23,7 @@ from ..ops.packed import PackedMatrix
 from ..ops.updates import fold_in_w_update
 from ..solver.driver import (
     _resolve_backend,
+    canonical_backend,
     _resolve_dtype,
     _resolve_precision,
     ieee_fp32_products,
@@ -128,15 +129,18 @@ class NBMFMM(*_BASES):
         package computes every tier in fp32 on the CPU).
     mesh : must be None
     mesh_axes : (str, str), default ("rows", "cols")
-        Stored for the reference's parameter set; unused while ``mesh`` is.
+        Forwarded to ``solve``, which checks it only together with ``mesh``.
     backend : {"auto", "fused", "plain"}, default="auto"
+        The JAX package's ``"pallas"`` and ``"jnp"`` name the fused and the
+        plain loop.
     packed : {None, False, True}, default=None
         Stream exactly-binary operands as packed words (``None``), always
         dense (``False``), or require packing (``True``); see ``solve``.
     solver_options : dict, optional
         Extra keyword arguments that ``fit`` forwards to ``solve`` (for
-        example ``device_results``).  They override the constructor's on a
-        key collision.
+        example ``device_results``, or the JAX package's ``block_m``,
+        ``block_n`` and ``pallas_interpret``, which ``solve`` accepts).
+        They override the constructor's on a key collision.
     use_numexpr, use_numba, projection_backend : ignored
         Legacy flags of the reference's README, accepted so that calls
         carry over.
@@ -238,6 +242,9 @@ class NBMFMM(*_BASES):
             dtype=self.dtype,
             precision=self.precision,
             mesh=self.mesh,
+            # getattr: an estimator pickled before mesh_axes existed has no
+            # such attribute (unpickling skips __init__).
+            mesh_axes=tuple(getattr(self, "mesh_axes", ("rows", "cols"))),
             backend=self.backend,
             packed=self.packed,
             device=self.device,
@@ -294,7 +301,7 @@ class NBMFMM(*_BASES):
         loop (float32 on a CUDA device, a rank within the cap) from
         ``_FUSED_TRANSFORM_MIN_ENTRIES`` entries; never under ``"plain"``."""
         route = _resolve_backend(self.backend, dtype, device, True, k=self.n_components)
-        return route == "fused" and (self.backend == "fused"
+        return route == "fused" and (canonical_backend(self.backend) == "fused"
                                      or n_entries >= _FUSED_TRANSFORM_MIN_ENTRIES)
 
     def transform(self, X, mask=None):

@@ -42,12 +42,14 @@ from ..ops import cuda_sweep as cs
 from ..ops import dense_sweep as ds
 from ..ops.updates import fold_in_w_update
 from ..solver.driver import (
-    _not_ported,
+    _check_interpret,
+    _check_mesh,
     _resolve_backend,
     _resolve_dtype,
     _resolve_precision,
     ieee_fp32_products,
 )
+from ..utils import debugging
 from ..utils.validation import check_is_fitted, densify
 
 __all__ = ["FoldInServer", "fold_in_fused"]
@@ -84,7 +86,8 @@ def _fold_in_chunk(Hp, A, B, W0t, *, route: str, packed: bool, n_iter: int, n_re
         contraction = lambda Wt: ds.w_terms(Wt, Hp, A, B, **kw)
         Ym, Ym2 = A.to(W0t.dtype), B.to(W0t.dtype)  # bf16 data widens exactly
     Wt = W0t
-    for _ in range(n_iter):
+    check_nan = debugging.nan_checks_enabled()
+    for it in range(n_iter):
         if route == "plain":
             Wt = fold_in_w_update(Wt, Hp, Ym, Ym2, n_features=n_real, eps=eps,
                                   precision=precision)
@@ -92,12 +95,17 @@ def _fold_in_chunk(Hp, A, B, W0t, *, route: str, packed: bool, n_iter: int, n_re
             Wt = Wt * contraction(Wt) / n_real
             col = Wt.sum(dim=0, keepdim=True)
             Wt = Wt / torch.where(col > 0, col, 1.0)
+        if check_nan:
+            debugging.check_finite("fold-in loop", it, W=Wt)
     W = torch.clamp(Wt.T, 1e-8, 1.0)
     W = W / W.sum(dim=1, keepdim=True)
     R = W @ Hp
     ll = Ym * torch.log(R + _EPS) + Ym2 * torch.log(torch.clamp_min(1.0 - R, 0.0) + _EPS)
     n_obs = torch.clamp_min((Ym + Ym2).sum(dim=1), 1.0)
-    return W, ll.sum(dim=1) / n_obs
+    scores = ll.sum(dim=1) / n_obs
+    if check_nan:
+        debugging.check_finite("fold-in loop", n_iter - 1, loglik=scores)
+    return W, scores
 
 
 def _stage_chunk(X, mask, *, rows_padded: int, n_cols: int, bm: int, dtype: torch.dtype,
@@ -147,6 +155,9 @@ def fold_in_fused(
     *,
     n_iter: int = 50,
     dtype=None,
+    block_m: Optional[int] = None,
+    block_n: Optional[int] = None,
+    interpret: bool = False,
     packed: Optional[bool] = None,
     random_state: int = 0,
     eps: float = _EPS,
@@ -163,12 +174,16 @@ def fold_in_fused(
     requires it, ``False`` streams dense.  ``eps`` is the iterations' eps
     (the per-row scores keep 1e-8, as in the JAX package);
     ``mxu_precision`` the kernels' product tier; ``dtype="bfloat16"``
-    stores the batch bf16 and is never packed.  Returns ``(W (rows, k),
+    stores the batch bf16 and is never packed.  ``block_m``/``block_n``
+    (the JAX package's tile sizes) are accepted and ignored: the port plans
+    its own tiling; ``interpret=True`` is what CPU tensors do anyway and
+    raises ``ValueError`` on a CUDA device.  Returns ``(W (rows, k),
     per_row_loglik (rows,))`` as numpy arrays.
     """
     dtype, data_dtype = _resolve_dtype(dtype)
     tier = _resolve_precision(mxu_precision, data_dtype)
     device = cs.resolve_device(device)
+    _check_interpret(interpret, device, "interpret")
     k = H.shape[0]
     route = _resolve_backend("fused", dtype, device, True, k=k)
     if packed is True and data_dtype is not None:
@@ -216,14 +231,20 @@ class FoldInServer:
     backend : {"auto", "fused", "plain"} — ``"auto"`` serves through the
         kernels for float32 on a CUDA device at a rank within the kernels'
         cap and through the plain fold-in otherwise; ``"fused"`` raises for
-        a rank above the cap (see ``solve``)
+        a rank above the cap (see ``solve``); the JAX package's ``"pallas"``
+        and ``"jnp"`` stand for ``"fused"`` and ``"plain"``
+    block_m, block_n : the JAX package's tile sizes, accepted and ignored
+        (the port plans its own tiling)
+    pallas_interpret : ``True`` is what CPU tensors do anyway (the kernels'
+        plain versions); on a CUDA device it raises ``ValueError``
     packed : ``None`` (default) packs each exactly-binary chunk on the host
         and streams its words through ``w_terms_packed``, and streams every
         other chunk dense through ``w_terms``; ``True`` requires every chunk
         to be exactly binary and raises otherwise (and with
         ``dtype="bfloat16"``); ``False`` streams dense.  Packed and dense
         results are bitwise equal, in every tier.
-    mesh : not ported yet (raises)
+    mesh, mesh_axes : not ported yet (``mesh`` raises; ``mesh_axes`` is
+        stored, and checked only with ``mesh``)
     device : where the fold-in runs (default ``"cuda"``)
     """
 
@@ -237,12 +258,18 @@ class FoldInServer:
         dtype=None,
         precision=None,
         backend: str = "auto",
-        packed: Optional[bool] = None,
+        block_m: Optional[int] = None,
+        block_n: Optional[int] = None,
+        pallas_interpret: bool = False,
         mesh=None,
+        mesh_axes: Tuple[str, str] = ("rows", "cols"),
+        packed: Optional[bool] = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise _not_ported("FoldInServer(mesh=...)", "Multi-GPU")
+        _check_mesh(mesh, mesh_axes, "FoldInServer(mesh=...)")
+        self.block_m, self.block_n = block_m, block_n
+        self.pallas_interpret = pallas_interpret
+        self.mesh, self.mesh_axes = mesh, mesh_axes
         if hasattr(model_or_H, "n_components"):  # an estimator
             check_is_fitted(model_or_H, ["components_"])
             H = model_or_H.components_
@@ -253,6 +280,7 @@ class FoldInServer:
         self.dtype, data_dtype = _resolve_dtype(dtype)
         self.precision = _resolve_precision(precision, data_dtype)
         self.device = cs.resolve_device(device)
+        _check_interpret(pallas_interpret, self.device)
         self.k, self.n_features = H.shape
         self.route = _resolve_backend(backend, self.dtype, self.device, True, packed, self.k)
         if packed is True and data_dtype is not None:

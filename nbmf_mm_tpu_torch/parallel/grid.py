@@ -44,6 +44,9 @@ def grid_solve(
     precision=None,
     pair_mode: str = "product",
     backend: str = "auto",
+    block_m: Optional[int] = None,
+    block_n: Optional[int] = None,
+    pallas_interpret: bool = False,
     packed: Optional[bool] = None,
     device="cuda",
 ):
@@ -70,6 +73,10 @@ def grid_solve(
     streams exactly-binary data (and mask) as packed words on the fused
     loop, ``False`` streams dense, ``True`` requires the words and raises
     otherwise; ``device`` defaults to ``"cuda"`` and raises without a card.
+    As in ``solve``, the JAX package's ``"pallas"``/``"jnp"`` name the fused
+    and plain loops, ``block_m``/``block_n`` are accepted and ignored (the
+    port plans its own tiling), and ``pallas_interpret=True`` is what CPU
+    tensors do anyway and raises ``ValueError`` on a CUDA device.
 
     Returns a dict of numpy arrays with a leading grid axis ``G``:
     ``alpha (G,)``, ``beta (G,)``, ``W (G, m, k)``, ``H (G, k, n)``,
@@ -85,6 +92,7 @@ def grid_solve(
     dtype, data_dtype = driver._resolve_dtype(dtype)
     tier = driver._resolve_precision(precision, data_dtype)
     device = cs.resolve_device(device)
+    driver._check_interpret(pallas_interpret, device)
     k = int(n_components)
 
     if pair_mode == "product":

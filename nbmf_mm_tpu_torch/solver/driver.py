@@ -49,7 +49,7 @@ import contextlib
 import time
 from dataclasses import dataclass, field
 from functools import partial
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,15 +70,47 @@ from ..ops.updates import (
     mm_sweep,
     precompute_masked_terms,
 )
+from ..utils import debugging
 
 __all__ = ["nbmf_mm_solver", "solve", "SolverResult"]
 
 _ORIENTATIONS = ("beta-dir", "dir-beta")
 _BACKENDS = ("auto", "fused", "plain")
+# The JAX package's backend names: its XLA loop is the plain loop, its Pallas
+# loop the fused one.
+_BACKEND_ALIASES = {"jnp": "plain", "pallas": "fused"}
+
+
+def canonical_backend(backend: str) -> str:
+    """``backend`` with the JAX package's names mapped to the port's."""
+    return _BACKEND_ALIASES.get(backend, backend)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP: {item})")
+
+
+def _check_interpret(interpret: bool, device: torch.device,
+                     name: str = "pallas_interpret") -> None:
+    """The JAX package's interpret flag: on the CPU it is what the kernel
+    wrappers do anyway (their plain versions); on a CUDA device the kernels
+    run, so asking for the interpreter there raises instead of substituting
+    the plain versions silently."""
+    if interpret and device.type == "cuda":
+        raise ValueError(f"{name}=True runs the kernels' plain versions, which this package "
+                         "takes only for CPU tensors; pass device='cpu', or drop it to run "
+                         "the CUDA kernels")
+
+
+def _check_mesh(mesh, mesh_axes, what: str) -> None:
+    """``mesh_axes`` is stored and checked only together with ``mesh``,
+    which is not ported yet."""
+    if mesh is None:
+        return
+    axes = tuple(mesh_axes)
+    if len(axes) != 2 or not all(isinstance(a, str) for a in axes):
+        raise ValueError(f"mesh_axes must be two axis names, got {mesh_axes!r}")
+    raise _not_ported(what, "Multi-GPU")
 
 
 @contextlib.contextmanager
@@ -146,17 +178,20 @@ def _resolve_backend(backend: str, dtype: torch.dtype, device: torch.device, bin
                      packed: Optional[bool] = None, k: Optional[int] = None) -> str:
     """Pick the solver loop: ``"fused"`` or ``"plain"``.
 
-    ``"auto"`` takes the fused kernel loop for float32 on a CUDA device and
-    the plain loop for float64, on the CPU, or for a rank ``k`` above the
-    kernels' cap (``cuda_sweep.MAX_RANK``); ``"fused"`` with such a rank
-    raises here, before anything is staged.  The fused loop streams packed
-    words when the operands are exactly binary (``binary``) and
-    ``packed`` is not False, dense operands otherwise.  ``packed=True``
+    ``"jnp"`` and ``"pallas"``, the JAX package's names, stand for
+    ``"plain"`` and ``"fused"``.  ``"auto"`` takes the fused kernel loop for
+    float32 on a CUDA device and the plain loop for float64, on the CPU, or
+    for a rank ``k`` above the kernels' cap (``cuda_sweep.MAX_RANK``);
+    ``"fused"`` with such a rank raises here, before anything is staged.  The
+    fused loop streams packed words when the operands are exactly binary
+    (``binary``) and ``packed`` is not False, dense operands otherwise.  ``packed=True``
     demands the packed words: it raises for non-binary operands and for the
     plain loop, as the JAX package's ``solve`` does.
     """
+    backend = canonical_backend(backend)
     if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+        raise ValueError(f"backend must be one of {_BACKENDS} (or the JAX package's "
+                         f"{tuple(_BACKEND_ALIASES)}), got {backend!r}")
     if packed not in (None, False, True):
         raise ValueError(f"packed must be None, False or True, got {packed!r}")
     if backend == "fused" and device.type == "cuda" and dtype != torch.float32:
@@ -287,11 +322,14 @@ def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
         beta = torch.as_tensor(beta, dtype=torch.float64).reshape(lead).cpu().numpy()
     W, H = W0, H0
     it, all_done = 0, False
+    check_nan = debugging.nan_checks_enabled()
     while it < max_iter and not all_done:
         W_new, H_new = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta, n_real=n_real,
                                 eps=eps, projection=projection, precision=precision)
         loss = map_objective(W_new, H_new, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs, eps=eps,
                              precision=precision)
+        if check_nan:
+            debugging.check_finite("plain loop", it, W=W_new, H=H_new, loss=loss)
         if verbose > 0 and not lead and it % 10 == 0:
             print(f"Iter {it}: Loss = {float(loss)}")
         # The stopping sweep's update and loss are kept (len(losses) ==
@@ -379,10 +417,13 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
 
     W, H = W0p, H0p
     it, all_done = 0, False
+    check_nan = debugging.nan_checks_enabled()
     while it < max_iter:
         Num, Den, ll = hloss(W, H)
         if it >= 1:
             loss = objective_from_ll(ll, H)  # loss of sweep it-1
+            if check_nan:
+                debugging.check_finite("fused loop", it - 1, loss=loss)
             if verbose > 0 and not lead and (it - 1) % 10 == 0:
                 print(f"Iter {it - 1}: Loss = {float(loss)}")
             live = ~done
@@ -394,6 +435,8 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
             if all_done:
                 break
         W, H = _keep_frozen(done, W, H, *finish_sweep(W, H, Num, Den), lead)
+        if check_nan:
+            debugging.check_finite("fused loop", it, W=W, H=H)
         n_iter = torch.where(done, n_iter, it + 1)
         it += 1
 
@@ -403,6 +446,8 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
         # never recorded.  Their counters stand at ``it``.
         loss_fin = objective_from_ll(final_ll(W, H), H)
         live, last = ~done, max(it - 1, 0)
+        if check_nan:
+            debugging.check_finite("fused loop", last, loss=loss_fin)
         losses[..., last] = torch.where(live, loss_fin, losses[..., last])
         final_loss = torch.where(live, loss_fin, prev)
         if it >= 2:
@@ -599,7 +644,11 @@ def solve(
     dtype=None,
     precision=None,
     mesh=None,
+    mesh_axes: Tuple[str, str] = ("rows", "cols"),
     backend: str = "auto",
+    block_m: Optional[int] = None,
+    block_n: Optional[int] = None,
+    pallas_interpret: bool = False,
     packed: Optional[bool] = None,
     return_all: bool = False,
     device_results: bool = False,
@@ -660,7 +709,13 @@ def solve(
       raises on a machine without a GPU; nothing moves to the CPU unasked);
     - ``backend``: ``"auto"``, ``"fused"`` (the kernel loop; CPU tensors go
       through the kernels' plain versions) or ``"plain"`` (dense
-      ``mm_sweep`` loop), see :func:`_resolve_backend`;
+      ``mm_sweep`` loop), see :func:`_resolve_backend`; the JAX package's
+      ``"pallas"`` and ``"jnp"`` are the same loops under those names;
+    - ``block_m``/``block_n``: the JAX package's Pallas tile sizes, accepted
+      and ignored: the port plans its own tiling (``cs.plan_packing`` and
+      the kernels' split planners);
+    - ``pallas_interpret``: ``True`` is what CPU tensors do anyway (the
+      kernels' plain versions); on a CUDA device it raises ``ValueError``;
     - ``packed``: ``None`` streams exactly-binary operands (data, and mask
       if given) as packed words and all others dense; ``False`` streams
       dense; ``True`` requires binary operands and the fused loop, and
@@ -670,7 +725,8 @@ def solve(
       ``device``; only ``n_iter``, ``converged`` and the safeguard's drift
       are read back to the host.
 
-    ``mesh`` raises ``NotImplementedError``.
+    ``mesh`` raises ``NotImplementedError``; ``mesh_axes`` is checked only
+    with it.
     """
     if orientation not in _ORIENTATIONS:
         raise ValueError(f"orientation must be one of {_ORIENTATIONS}, got {orientation!r}")
@@ -680,11 +736,11 @@ def solve(
         raise ValueError(f"mask_mode must be 'parity' or 'corrected', got {mask_mode!r}")
     if n_init < 1:
         raise ValueError(f"n_init must be >= 1, got {n_init}")
-    if mesh is not None:
-        raise _not_ported("mesh", "Multi-GPU")
+    _check_mesh(mesh, mesh_axes, "mesh")
     dtype, data_dtype = _resolve_dtype(dtype)
     tier = _resolve_precision(precision, data_dtype)
     device = cs.resolve_device(device)
+    _check_interpret(pallas_interpret, device)
     k = int(n_components)
     if type(Y).__name__ == "PackedMatrix" and not isinstance(Y, PackedMatrix):
         raise TypeError(

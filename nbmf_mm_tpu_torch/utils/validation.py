@@ -36,8 +36,10 @@ def warn_large_sparse_densify(X, where: str) -> None:
         warnings.warn(
             f"{where} densifies sparse input whole: {m}x{n} = {n_entries:.3g} "
             f"entries (~{8 * n_entries / 1e9:.1f} GB as float64). This is by "
-            "contract (the seeded fold-in W0 draw spans the full batch); "
-            "split large sparse request batches before calling it.",
+            "contract (the seeded fold-in W0 draw spans the full batch), but "
+            "for large sparse request batches prefer "
+            "nbmf_mm_tpu_torch.models.serving.FoldInServer, which accepts "
+            "scipy.sparse and stages one bucket-chunk at a time.",
             UserWarning,
             stacklevel=3,
         )

@@ -1,7 +1,8 @@
 """Contracts of the port that differed from the JAX package's: the
 estimator's constructor parameters, ``SolverResult``'s fields, ranks above
 the kernels' cap, the process-wide TF32 switches, the errors of the restart
-options, and what the port's sources import."""
+options, what the port's sources import, the JAX package's option names
+(P7), the exports, and the sparse-densify warning (P8)."""
 
 import ast
 import dataclasses
@@ -14,13 +15,23 @@ import torch
 
 import nbmf_mm_tpu as jref
 import nbmf_mm_tpu_torch as port
+import nbmf_mm_tpu.models as jref_models
+import nbmf_mm_tpu.utils as jref_utils
+from nbmf_mm_tpu.models import serving as jref_serving
+from nbmf_mm_tpu.parallel import grid as jref_grid
+from nbmf_mm_tpu.parallel import restarts as jref_restarts
 from nbmf_mm_tpu.solver.driver import SolverResult as RefSolverResult
+from nbmf_mm_tpu.utils import cache as jref_cache
+from nbmf_mm_tpu.utils import checkpoint as jref_checkpoint
+from nbmf_mm_tpu.utils import debugging as jref_debugging
 from nbmf_mm_tpu_torch.models import estimator as port_estimator
 from nbmf_mm_tpu_torch.models import serving as port_serving
 from nbmf_mm_tpu_torch.ops import _build, tiers
 from nbmf_mm_tpu_torch.ops import cuda_sweep as cs
 from nbmf_mm_tpu_torch.ops import dense_sweep as ds
+from nbmf_mm_tpu_torch.parallel.grid import driver as port_grid_driver
 from nbmf_mm_tpu_torch.solver import driver as port_driver
+from nbmf_mm_tpu_torch.utils import checkpoint as port_checkpoint
 from nbmf_mm_tpu_torch.solver.driver import _resolve_backend, ieee_fp32_products
 
 torch.set_num_threads(1)
@@ -265,7 +276,9 @@ def test_n_init_below_one_raises(n_init):
 # --------------------------------------------- P6: what the sources import
 def _port_sources():
     root = pathlib.Path(port.__file__).resolve().parent
-    return sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    compat = root.parent / "nbmf_mm_compat_torch"
+    return (sorted(root.rglob("*.py")) + sorted(compat.rglob("*.py"))
+            + [root.parent / "chip_smoke.py"])
 
 
 def _imported_roots(path):
@@ -288,6 +301,14 @@ def test_sources_cover_the_parallel_package():
 
 def test_sources_cover_the_tier_module():
     assert any(p.name == "tiers.py" and p.parent.name == "ops" for p in _port_sources())
+
+
+def test_sources_cover_the_host_surface_and_the_compat_shim():
+    names = {(p.parent.name, p.name) for p in _port_sources()}
+    assert {("utils", "checkpoint.py"), ("utils", "debugging.py"), ("utils", "rdata.py"),
+            ("utils", "cache.py"), ("models", "baselines.py"),
+            ("nbmf_mm_compat_torch", "__init__.py"),
+            ("nbmf_mm_compat_torch", "_utils.py")} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: f"{p.parent.name}/{p.name}")
@@ -320,8 +341,193 @@ def test_every_operand_form_entry_point_has_a_source_and_a_counter():
         assert counter in (cs.LAUNCHES if base.endswith("_packed") else ds.LAUNCHES), counter
 
 
+def _entry(name):
+    """A public callable of the port by name: the package root's, then the
+    utils' and the models'."""
+    for owner in (port, port.utils, port.models):
+        if hasattr(owner, name):
+            return getattr(owner, name)
+    raise AttributeError(name)
+
+
 @pytest.mark.parametrize("entry", ["solve", "NBMF", "grid_solve", "FoldInServer",
                                    "fold_in_fused", "pack_matrix", "pack_matrix_chunked",
-                                   "pack_matrix_sparse"])
+                                   "pack_matrix_sparse", "load_model", "resume_fit", "NBMFEM",
+                                   "LogisticPCA"])
 def test_entry_points_default_to_the_card(entry):
-    assert inspect.signature(getattr(port, entry)).parameters["device"].default == "cuda"
+    assert inspect.signature(_entry(entry)).parameters["device"].default == "cuda"
+
+
+# ------------------------------- P7: the JAX package's option names and exports
+# (JAX callable, port callable): every public callable whose parameters must
+# cover the JAX package's, plus device where the port takes one.
+SIGNATURE_PAIRS = {
+    "solve": (jref.solve, port.solve),
+    "nbmf_mm_solver": (jref.nbmf_mm_solver, port.nbmf_mm_solver),
+    "NBMF": (jref.NBMF, port.NBMF),
+    "grid_solve": (jref_grid.grid_solve, port.grid_solve),
+    "vmapped_solve": (jref_restarts.vmapped_solve, port.parallel.vmapped_solve),
+    "FoldInServer": (jref_serving.FoldInServer, port.FoldInServer),
+    "fold_in_fused": (jref_serving.fold_in_fused, port.fold_in_fused),
+    "pack_matrix": (jref.pack_matrix, port.pack_matrix),
+    "pack_matrix_chunked": (jref.pack_matrix_chunked, port.pack_matrix_chunked),
+    "pack_matrix_sparse": (jref.pack_matrix_sparse, port.pack_matrix_sparse),
+    "save_checkpoint": (jref_utils.save_checkpoint, port.utils.save_checkpoint),
+    "load_checkpoint": (jref_utils.load_checkpoint, port.utils.load_checkpoint),
+    "save_model": (jref_utils.save_model, port.utils.save_model),
+    "load_model": (jref_utils.load_model, port.utils.load_model),
+    "resume_fit": (jref_utils.resume_fit, port.utils.resume_fit),
+    "fit_checkpointed": (jref_checkpoint.fit_checkpointed, port_checkpoint.fit_checkpointed),
+    "enable_nan_checks": (jref_debugging.enable_nan_checks, port.utils.enable_nan_checks),
+    "enable_compilation_cache": (jref_cache.enable_compilation_cache,
+                                 port.utils.enable_compilation_cache),
+    "NBMFEM": (jref_models.NBMFEM, port.models.NBMFEM),
+    "LogisticPCA": (jref_models.LogisticPCA, port.models.LogisticPCA),
+}
+# The only names a port subpackage may lack: the mesh functions of the JAX
+# package's parallel/sharding.py (ROADMAP queue 1, item 9, Multi-GPU).
+MESH_FUNCTIONS = {"make_mesh", "data_sharding", "factor_shardings", "shard_solver_operands"}
+
+
+def _params(fn):
+    return [p for p in inspect.signature(fn).parameters if p != "self"]
+
+
+@pytest.mark.parametrize("name", sorted(SIGNATURE_PAIRS))
+def test_parameters_cover_the_reference_plus_device(name):
+    ref, ours = SIGNATURE_PAIRS[name]
+    missing = [p for p in _params(ref) if p not in _params(ours)]
+    assert not missing, missing
+    assert set(_params(ours)) - set(_params(ref)) <= {"device"}
+
+
+@pytest.mark.parametrize("sub", ["", "models", "utils", "parallel", "solver", "ops"])
+def test_subpackage_exports_cover_the_reference(sub):
+    import importlib
+
+    ref = importlib.import_module("nbmf_mm_tpu" + (f".{sub}" if sub else ""))
+    ours = importlib.import_module("nbmf_mm_tpu_torch" + (f".{sub}" if sub else ""))
+    allowed = MESH_FUNCTIONS if sub == "parallel" else set()
+    assert set(ref.__all__) - set(ours.__all__) == allowed
+    for name in ours.__all__:
+        assert hasattr(ours, name), name
+
+
+@pytest.mark.parametrize("alias, name", [("jnp", "plain"), ("pallas", "fused")])
+def test_backend_aliases_are_bitwise_their_loops(alias, name):
+    mask = (np.random.default_rng(3).random((24, 16)) < 0.8).astype(np.float64)
+    kw = dict(max_iter=15, tol=0.0, random_state=0, dtype="float32", device="cpu", mask=mask)
+    a = port.solve(_binary(), 3, backend=alias, **kw)
+    b = port.solve(_binary(), 3, backend=name, **kw)
+    assert a.extras == b.extras and a.extras["backend"] == name
+    assert a.losses == b.losses and a.n_iter == b.n_iter
+    np.testing.assert_array_equal(a.W, b.W)
+    np.testing.assert_array_equal(a.H, b.H)
+    grid = lambda backend: port.grid_solve(_binary(), 3, [1.0, 2.0], [1.5], max_iter=8,
+                                           backend=backend, device="cpu")
+    ga, gb = grid(alias), grid(name)
+    assert all(np.array_equal(ga[key], gb[key]) for key in ga)
+    H = np.random.default_rng(4).uniform(0.1, 0.9, (3, 16))
+    serve = lambda backend: port.FoldInServer(H, n_iter=5, buckets=(32,), backend=backend,
+                                              device="cpu").transform(_binary())
+    assert all(map(np.array_equal, serve(alias), serve(name)))
+    est = lambda backend: port.NBMF(n_components=3, max_iter=10, random_state=0, backend=backend,
+                                    device="cpu").fit(_binary())
+    np.testing.assert_array_equal(est(alias).W_, est(name).W_)
+
+
+def test_pallas_estimator_transform_takes_the_fused_route():
+    est = port.NBMF(n_components=3, backend="pallas")
+    assert est._use_fused_transform(10, torch.float32, CPU) is True
+    assert port.NBMF(n_components=3, backend="jnp")._use_fused_transform(
+        1 << 23, torch.float32, CUDA) is False
+
+
+def test_block_sizes_are_accepted_and_ignored():
+    kw = dict(max_iter=10, tol=0.0, random_state=0, dtype="float32", device="cpu",
+              backend="fused")
+    base = port.solve(_binary(), 3, **kw)
+    tiles = port.solve(_binary(), 3, block_m=256, block_n=128, pallas_interpret=True, **kw)
+    assert base.losses == tiles.losses
+    np.testing.assert_array_equal(base.W, tiles.W)
+    g = port.grid_solve(_binary(), 3, [1.0], [1.5], max_iter=5, block_m=64, block_n=64,
+                        pallas_interpret=True, device="cpu")
+    assert g["W"].shape == (1, 24, 3)
+    H = np.random.default_rng(5).uniform(0.1, 0.9, (3, 16))
+    W, _ = port.fold_in_fused(H, _binary(), n_iter=3, block_m=64, block_n=64, interpret=True,
+                              device="cpu")
+    W2, _ = port.fold_in_fused(H, _binary(), n_iter=3, device="cpu")
+    np.testing.assert_array_equal(W, W2)
+    server = port.FoldInServer(H, block_m=64, block_n=32, pallas_interpret=True,
+                               mesh_axes=("a", "b"), device="cpu")
+    assert (server.block_m, server.block_n, server.pallas_interpret) == (64, 32, True)
+    assert server.mesh_axes == ("a", "b")
+
+
+def test_solver_options_take_the_reference_examples():
+    kw = dict(n_components=3, max_iter=8, tol=0.0, random_state=0, dtype="float32",
+              device="cpu")
+    base = port.NBMF(**kw).fit(_binary())
+    for options in ({"block_m": 256}, {"block_n": 64}, {"pallas_interpret": True}):
+        est = port.NBMF(**kw, solver_options=options).fit(_binary())
+        np.testing.assert_array_equal(est.W_, base.W_)
+
+
+@pytest.fixture
+def cuda_without_card(monkeypatch):
+    """``device="cuda"`` resolved as if a card were present, and every
+    staging step refused, so that a check must fire before anything is
+    staged."""
+    monkeypatch.setattr(cs, "resolve_device", lambda device: torch.device(device))
+
+    def staged(*args, **kwargs):
+        raise AssertionError("staged before the interpret check")
+
+    for module in (port_driver, port_grid_driver):
+        monkeypatch.setattr(module, "_to_tensor", staged)
+    monkeypatch.setattr(port_serving, "_stage_chunk", staged)
+    monkeypatch.setattr(port_serving, "_padded_H", staged)
+
+
+@pytest.mark.usefixtures("cuda_without_card")
+def test_interpret_on_cuda_raises_before_staging():
+    H = np.full((3, 16), 0.5)
+    calls = {
+        "solve": lambda: port.solve(_binary(), 3, pallas_interpret=True, device="cuda"),
+        "grid_solve": lambda: port.grid_solve(_binary(), 3, [1.0], [1.5],
+                                              pallas_interpret=True, device="cuda"),
+        "FoldInServer": lambda: port.FoldInServer(H, pallas_interpret=True, device="cuda"),
+        "fold_in_fused": lambda: port.fold_in_fused(H, _binary(), interpret=True,
+                                                    device="cuda"),
+        "NBMF": lambda: port.NBMF(n_components=3, device="cuda",
+                                  solver_options={"pallas_interpret": True}).fit(_binary()),
+    }
+    for what, call in calls.items():
+        with pytest.raises(ValueError, match="interpret=True"):
+            call()
+
+
+def test_mesh_axes_are_checked_only_with_a_mesh():
+    res = port.solve(_binary(), 2, max_iter=2, mesh_axes=("x",), device="cpu")
+    assert res.n_iter == 2
+    with pytest.raises(ValueError, match="mesh_axes"):
+        port.solve(_binary(), 2, mesh=object(), mesh_axes=("x",), device="cpu")
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        port.solve(_binary(), 2, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        port.FoldInServer(np.full((2, 4), 0.5), mesh=object(), device="cpu")
+    est = port.NBMF(n_components=2, max_iter=2, mesh_axes=("a", "b"), device="cpu")
+    assert est.fit(_binary()).n_iter_ == 2
+
+
+# ------------------------------------------- P8: the sparse-densify warning
+def test_sparse_densify_warning_points_to_the_ports_server():
+    sparse = pytest.importorskip("scipy.sparse")
+    from nbmf_mm_tpu_torch.utils import validation
+
+    big = sparse.csr_matrix((1, validation.SPARSE_DENSIFY_WARN_ENTRIES))
+    with pytest.warns(UserWarning) as record:
+        validation.warn_large_sparse_densify(big, "transform")
+    text = str(record[0].message)
+    assert "nbmf_mm_tpu_torch.models.serving.FoldInServer" in text
+    assert "one bucket-chunk at a time" in text and "nbmf_mm_tpu.models" not in text

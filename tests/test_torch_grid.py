@@ -209,7 +209,7 @@ def test_grid_solve_rejects_unequal_zip_lengths_and_a_bad_pair_mode():
     (dict(precision="high"), None, "high"),
     (dict(mask_mode="both"), ValueError, "mask_mode"),
     (dict(max_iter=0), ValueError, "max_iter"),
-    (dict(backend="pallas"), ValueError, "backend"),
+    (dict(backend="xla"), ValueError, "backend"),  # "pallas" names the fused loop
     (dict(mask=np.zeros((30, 24))), ValueError, "no observed entries"),
 ], ids=["bfloat16", "precision-default", "precision-high", "mask_mode", "max_iter-0",
         "backend", "empty-mask"])

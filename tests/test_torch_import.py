@@ -49,9 +49,14 @@ def test_import_leaves_jax_out():
         "nbmf_mm_tpu_torch.tools.hpass_tune, nbmf_mm_tpu_torch.tools.ab_time, "
         "nbmf_mm_tpu_torch.tools.wgmma_tf32_probe, "
         "nbmf_mm_tpu_torch.parallel, "
-        "nbmf_mm_tpu_torch.parallel.restarts, nbmf_mm_tpu_torch.parallel.grid; "
+        "nbmf_mm_tpu_torch.parallel.restarts, nbmf_mm_tpu_torch.parallel.grid, "
+        "nbmf_mm_tpu_torch.utils.checkpoint, nbmf_mm_tpu_torch.utils.debugging, "
+        "nbmf_mm_tpu_torch.utils.rdata, nbmf_mm_tpu_torch.utils.cache, "
+        "nbmf_mm_tpu_torch.models.baselines, nbmf_mm_compat_torch, "
+        "nbmf_mm_compat_torch._utils; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'nbmf_mm_tpu' or m.startswith('nbmf_mm_tpu.')]; "
+        "or m == 'nbmf_mm_tpu' or m.startswith('nbmf_mm_tpu.') "
+        "or m.startswith('nbmf_mm_compat') and not m.startswith('nbmf_mm_compat_torch')]; "
         "assert not bad, bad; print('ok')" % REPO
     )
     # -I: no PYTHONPATH / site hooks that could pre-import jax.
@@ -128,12 +133,22 @@ def test_resolve_backend_nonbinary_cuda_auto_not_ported():
     "backend, dtype, device, binary",
     [
         ("fused", torch.float64, CUDA, True),
-        ("jnp", torch.float32, CPU, True),
+        ("pallas", torch.float64, CUDA, True),
+        ("xla", torch.float32, CPU, True),
     ],
 )
 def test_resolve_backend_rejects(backend, dtype, device, binary):
     with pytest.raises(ValueError):
         _resolve_backend(backend, dtype, device, binary)
+
+
+@pytest.mark.parametrize("alias, name", [("jnp", "plain"), ("pallas", "fused")])
+def test_resolve_backend_takes_the_jax_names(alias, name):
+    # The JAX package's "jnp" (XLA) and "pallas" loops are the port's plain
+    # and fused loops.
+    for dtype, device in ((torch.float32, CPU), (torch.float32, CUDA), (torch.float64, CPU)):
+        assert _resolve_backend(alias, dtype, device, True) == _resolve_backend(
+            name, dtype, device, True)
 
 
 @pytest.mark.parametrize(
