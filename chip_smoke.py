@@ -102,6 +102,36 @@ against the CPU; and the JAX package's option names on the card
 (``backend="pallas"`` bitwise ``"fused"``, ``block_m`` ignored,
 ``pallas_interpret=True`` raising) with ``nbmf_mm_compat_torch.NBMF``.
 
+Phase 12 is the stress driver on the card
+(``nbmf_mm_tpu_torch/tools/stress_solve.py``): the geometry planners on
+5000 random geometries on the host, of which the first 64 whose operands fit
+in 256 MB go through every pass of their operand form against the plain
+versions (phase 3's bars: float32 on random factors, the reduced forms on
+dyadic factors, on which the kernels and the plain versions form the same
+``WH``; the reduced forms' deviations on random factors printed; these
+comparison launches are not counted), and a
+rank past ``MAX_RANK`` and ``MAX_LANES + 1`` lanes through the wrappers,
+which raise ``ValueError`` with nothing allocated; then 100 draws each of
+``fused`` (the operand form drawn per draw), ``edge-fused`` and
+``estimator-fused`` from fixed seeds, each with the counters zeroed before
+and read after, with no failed draw, the fused draws' card loop against the
+card's plain loop (``tol=0``, the same inits; float32 in the continuous
+regime held to 1e-5 in the losses and 1e-4 in the factors, the other forms'
+deviations printed) and the launches per kernel form.
+
+Phase 13 is the experiment runners (``nbmf_mm_tpu_torch/experiments/``),
+with the counters zeroed before and read after: Figures 1-3 of the paper
+reproduction on animals, lastfm and paleo (the 6 x 6 grids, the fits, the
+10-init NBMF-MM protocol within two standard deviations of the JAX round's
+``outputs/figure2_results.csv``, the NBMF-EM and logPCA protocols within
+phase 11's bars of that file's means, the rank sweeps), each dataset's
+Figure 2 fit on the card against the same seed on the CPU (test NLL within
+1e-3); the benchmark suite; ``flagship_scale``'s ``headline_1e9`` (converged
+within its budget, descent within 5e-4 of the loss, final loss within 1% of
+the oracle NLL, peak device memory under the dense matrix's bytes) and
+``sparse_3pct_1e9``; and ``validate_implementation`` (exit code 0).  The
+CSVs go to ``chiprun_out/experiments/``.
+
 Each phase prints one line or more; any failure raises and the script exits
 non-zero.  The last line is a JSON object with ``"ok": true`` and the
 device; the line before it lists the kernels.
@@ -295,6 +325,28 @@ BASELINES = {"NBMF-EM": dict(k=16, max_iter=500, rel=0.03, max_n_iter=5),
 # n_iter, the losses within this relative bar (summation orders and the SVD
 # differ; the CPU tests hold the cores to the JAX package's at 1e-12).
 BASELINE_DEVICE_REL = 1e-10
+# Phase 12: the stress driver.  Geometries drawn on the host, those launched
+# on the card, and draws per backend, from fixed seeds.
+STRESS_PLANNERS = 5000
+STRESS_LAUNCHED = 64
+STRESS_DRAWS = {"fused": 100, "edge-fused": 100, "estimator-fused": 100}
+STRESS_SEED = 12
+# Phase 13: the experiment runners.  The JAX round's Figure 2 results
+# (mean and standard deviation of the 10-init NBMF-MM test NLL, the
+# baselines' means), against which the port's 10-init protocol is held to
+# FIG2_SIGMAS standard deviations and the baselines to phase 11's relative
+# bars (BASELINES); each dataset's Figure 2 fit on the card against the same
+# seed on the CPU, test NLL within CARD_CPU_NLL.
+JAX_FIG2 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "outputs",
+                        "figure2_results.csv")
+FIG2_SIGMAS = 2.0
+CARD_CPU_NLL = 1e-3
+EXPERIMENTS_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                               "experiments")
+# The flagship row's bars: the worst rise of the loss from one sweep to the
+# next relative to the final loss, and the final loss against the oracle NLL.
+FLAGSHIP_DESCENT = 5e-4
+FLAGSHIP_ORACLE_REL = 0.01
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2563,6 +2615,195 @@ def host_surface_phase(NBMF, solve, X, lastfm, request, card, cs, ds):
     return total
 
 
+def stress_phase(card, cs, ds):
+    """Phase 12: the stress driver on the card.  Returns the launches per
+    kernel form over the draws (the planner's comparison launches apart)."""
+    from nbmf_mm_tpu_torch.tools import stress_solve as st
+
+    total = {}
+    t0 = time.perf_counter()
+    planners = st.planner_sweep(STRESS_PLANNERS, seed=STRESS_SEED, launch=STRESS_LAUNCHED,
+                                device=DEV, quiet=True)
+    print(f"stress planners: {planners['drawn']} geometries drawn, {planners['planned']} "
+          f"planned within the kernels' preconditions, {planners['refused']} refused up front; "
+          f"{planners['launched']} launched (forms {planners['forms']}) against the plain "
+          f"versions: worst rel err Num/Den/T {planners['worst']['terms']:.3e}, ll "
+          f"{planners['worst']['ll']:.3e} (bars {st.LAUNCH_BARS[0]:g} of max|plain| and "
+          f"{st.LAUNCH_BARS[1]:g}; the reduced forms on dyadic factors, where WH is exact); the "
+          f"reduced forms on random factors, reported: Num/Den/T "
+          f"{planners['reported']['terms']:.3e}, ll {planners['reported']['ll']:.3e}; "
+          f"{planners.get('refusals', 0)} refusals through the wrappers allocated nothing; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    check(planners["drawn"] == STRESS_PLANNERS == planners["planned"] + planners["refused"],
+          f"planner sweep {planners}")
+    check(planners["launched"] >= 60 and set(planners["forms"]) == set(st.FORMS),
+          f"planner sweep launched {planners['forms']}")
+    check(planners.get("refusals", 0) > 0, "no refusal was checked on the card")
+    for i, (backend, draws) in enumerate(STRESS_DRAWS.items()):
+        t0 = time.perf_counter()
+        zero_counts(cs, ds)
+        out = st.stress(backend, draws, seed=STRESS_SEED + i, precision="draw", device=DEV,
+                        quiet=True)
+        counts = read_counts(cs, ds)
+        add_counts(total, cs, ds)
+        print(f"stress {backend} (seed {STRESS_SEED + i}, operand form drawn per draw): "
+              f"{out['draws']} draws, {len(out['failures'])} failed {out['failures'][:3]}; "
+              f"forms {out['forms']}; card loop against the card's plain loop (tol=0, same "
+              f"inits), draws compared {out['compared']}, worst {out['worst']} (float32 bars "
+              f"{st.CARD_LOSS_REL:g} loss rel, {st.CARD_FACTOR_ABS:g} factors); launches per "
+              f"kernel form {nonzero(counts)}; {time.perf_counter() - t0:.1f} s [{card}]",
+              flush=True)
+        check(not out["failures"], f"stress {backend}: failed draws {out['failures']}")
+    return total
+
+
+def jax_figure2() -> dict:
+    """The JAX round's Figure 2 rows by dataset."""
+    import csv
+
+    with open(JAX_FIG2, newline="") as f:
+        return {row["dataset"]: {k: float(v) if k != "dataset" and v not in ("True", "False")
+                                 else v for k, v in row.items()} for row in csv.DictReader(f)}
+
+
+def figures_phase(card):
+    """Phase 13, Figures 1-3 on the three datasets (the runner's float32
+    default: the fused loop over packed words), against the JAX round's
+    Figure 2 and the CPU."""
+    from nbmf_mm_tpu_torch import NBMF
+    from nbmf_mm_tpu_torch.experiments import reproduce_magron2022 as rep
+    from nbmf_mm_tpu_torch.experiments.data import load_dataset_and_splits
+
+    out_dir = Path(EXPERIMENTS_OUT)
+    ref = jax_figure2()
+    for ds in rep.FIG1_K:
+        t0 = time.perf_counter()
+        rows = rep.figure1_rows(ds, None, DEV)
+        rep.write_csv(out_dir / f"figure1_{ds}_results.csv", rows)
+        best = min(rows, key=lambda r: r["val_perplexity"])
+        ok = len(rows) == 36 and all(np.isfinite(r["val_perplexity"]) and r["n_iter"] <= 500
+                                     for r in rows)
+        print(f"figure 1 {ds}: 36 cells in one grid_solve, best a={best['alpha']} "
+              f"b={best['beta']} val perplexity {best['val_perplexity']:.4f}, sweeps "
+              f"{min(r['n_iter'] for r in rows)}-{max(r['n_iter'] for r in rows)}, "
+              f"{time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        check(ok, f"figure 1 {ds}: {rows}")
+    fig2 = []
+    for ds in rep.FIG1_K:
+        t0 = time.perf_counter()
+        row, model, nlls = rep.figure2_row(ds, None, DEV)
+        fig2.append(row)
+        j = ref[ds]
+        mm_dev = abs(row["mm10_test_nll_mean"] - j["mm10_test_nll_mean"])
+        em_rel = (abs(row["nbmf_em_test_nll_mean"] - j["nbmf_em_test_nll_mean"])
+                  / j["nbmf_em_test_nll_mean"])
+        lp_rel = (abs(row["logpca_test_nll_mean"] - j["logpca_test_nll_mean"])
+                  / j["logpca_test_nll_mean"])
+        p = rep.FIG2_PARAMS[ds]
+        Y, train, _, test = load_dataset_and_splits(ds)
+        on_cpu = NBMF(n_components=p["k"], alpha=p["alpha"], beta=p["beta"],
+                      max_iter=rep.FIG2_MAX_ITER[ds], tol=1e-5, random_state=rep.SEED,
+                      device="cpu").fit(Y, mask=train)
+        nll_card = float(np.log(row["test_perplexity"]))
+        nll_cpu = rep._obs_nll(Y, on_cpu.W_.astype(np.float64)
+                               @ on_cpu.components_.astype(np.float64), test)
+        print(f"figure 2 {ds}: fit test perplexity {row['test_perplexity']:.4f} (JAX round "
+              f"{j['test_perplexity']:.4f}), n_iter {row['n_iter']}, converged "
+              f"{row['converged']}; 10-init NBMF-MM test NLL {row['mm10_test_nll_mean']:.4f} +- "
+              f"{row['mm10_test_nll_std']:.4f} against the JAX round's "
+              f"{j['mm10_test_nll_mean']:.4f} +- {j['mm10_test_nll_std']:.4f} (off by "
+              f"{mm_dev / j['mm10_test_nll_std']:.2f} sd, bar {FIG2_SIGMAS:g}; artifact "
+              f"{row['magron_mm_test_nll_mean']:.4f}), sweeps ~{row['mm10_iters_mean']:.0f}, "
+              f"{row['mm10_batch_time']:.2f} s; NBMF-EM {row['nbmf_em_test_nll_mean']:.4f} "
+              f"({100 * em_rel:.2f}% off the JAX round, bar "
+              f"{100 * BASELINES['NBMF-EM']['rel']:g}%; artifact "
+              f"{row['magron_nbmf_em_test_nll_mean']:.4f}), logPCA "
+              f"{row['logpca_test_nll_mean']:.4f} ({100 * lp_rel:.2f}%, bar "
+              f"{100 * BASELINES['logPCA']['rel']:g}%; artifact "
+              f"{row['magron_logpca_test_nll_mean']:.4f}); card against CPU (seed {rep.SEED}): "
+              f"test NLL {nll_card:.6f} / {nll_cpu:.6f}, n_iter {row['n_iter']} / "
+              f"{on_cpu.n_iter_}; {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        check(mm_dev <= FIG2_SIGMAS * j["mm10_test_nll_std"],
+              f"figure 2 {ds}: the 10-init protocol is {mm_dev:.4f} off the JAX round")
+        check(em_rel < BASELINES["NBMF-EM"]["rel"] and lp_rel < BASELINES["logPCA"]["rel"],
+              f"figure 2 {ds}: baselines off the JAX round by {em_rel:.4f} / {lp_rel:.4f}")
+        check(abs(nll_card - nll_cpu) <= CARD_CPU_NLL,
+              f"figure 2 {ds}: card and CPU test NLL differ by {abs(nll_card - nll_cpu)}")
+    rep.write_csv(out_dir / "figure2_results.csv", fig2)
+    for ds in rep.FIG1_K:
+        t0 = time.perf_counter()
+        rows = rep.figure3_rows(ds, None, DEV)
+        rep.write_csv(out_dir / f"figure3_{ds}_results.csv", rows)
+        print(f"figure 3 {ds}: " + ", ".join(
+            f"K={r['k']} test perplexity {r['test_perplexity']:.4f} ({r['n_iter']} sweeps)"
+            for r in rows) + f"; {time.perf_counter() - t0:.2f} s [{card}]", flush=True)
+        check(all(np.isfinite(r["test_perplexity"]) and r["n_iter"] <= 1000 for r in rows),
+              f"figure 3 {ds}: {rows}")
+
+
+def flagship_phase(card, loops):
+    """Phase 13, ``flagship_scale``'s ``headline_1e9`` and
+    ``sparse_3pct_1e9``."""
+    from nbmf_mm_tpu_torch.experiments import flagship_scale as flag
+
+    rows = flag.run(flag.CONFIGS, flag.SPARSE, DEV, Path(EXPERIMENTS_OUT))
+    for row in rows:
+        rel_rise = float(row["worst_descent_violation"]) / abs(row["final_loss"])
+        oracle_rel = abs(row["final_loss"] - row["oracle_nll"]) / row["oracle_nll"]
+        dense_gb = row["M"] * row["N"] * 4 / 2**30
+        print(f"flagship {row['config']}: {row['M']}x{row['N']} K={row['K']}, "
+              f"{row['packed_mb']} MB of words made in {row['gen_pack_s']:.2f} s; n_iter "
+              f"{row['n_iter']}, converged {row['converged']}; final loss "
+              f"{row['final_loss']:.6f} against the oracle NLL {row['oracle_nll']:.6f} "
+              f"({100 * oracle_rel:.2f}%); worst rise {rel_rise:.2e} of the loss; "
+              f"{row['ms_per_sweep']:.3f} ms/sweep (the headline loop {loops['binary']:.3f} "
+              f"ms/sweep at 10^8 entries), factor pull {row['retrieve_s']:.3f} s, peak device "
+              f"memory {row['peak_hbm_gb']} GB against {dense_gb:.2f} GB dense [{card}]",
+              flush=True)
+        check(np.isfinite(row["final_loss"]) and rel_rise <= FLAGSHIP_DESCENT,
+              f"flagship {row['config']}: descent {rel_rise}")
+        check(row["peak_hbm_gb"] < dense_gb, f"flagship {row['config']}: a dense copy's memory")
+        if row["config"] == "headline_1e9":
+            check(row["converged"] and oracle_rel <= FLAGSHIP_ORACLE_REL,
+                  f"flagship headline: converged {row['converged']}, {oracle_rel:.4f} off")
+    return rows
+
+
+def experiments_phase(card, loops, cs, ds):
+    """Phase 13: the experiment runners on the card.  Returns the launches
+    per kernel over the phase."""
+    from nbmf_mm_tpu_torch.experiments import benchmark_suite as bench
+    from nbmf_mm_tpu_torch.experiments import validate_implementation as valid
+
+    zero_counts(cs, ds)
+    total = {}
+    t0 = time.perf_counter()
+    figures_phase(card)
+    print(f"figures 1-3: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    t0 = time.perf_counter()
+    rows = (bench.dataset_rows(None, DEV) + bench.quickstart_row(None, DEV)
+            + bench.throughput_row(HEADLINE["m"], HEADLINE["k"], 40, DEV))
+    bench_ms = 1e3 / rows[-1]["sweeps_per_sec"]
+    print(f"benchmark suite: {len(rows)} rows; throughput {bench_ms:.3f} ms/sweep at the "
+          f"headline (phase 6's loop {loops['binary']:.3f}); {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    check(all(r["n_iter"] for r in rows) and np.isfinite(bench_ms) and bench_ms > 0,
+          f"benchmark suite rows {rows}")
+    t0 = time.perf_counter()
+    flagship_phase(card, loops)
+    print(f"flagship: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    t0 = time.perf_counter()
+    code = valid.main(["--device", DEV])
+    print(f"validate_implementation on the card: exit code {code}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    check(code == 0, "validate_implementation failed on the card")
+    add_counts(total, cs, ds)
+    print(f"experiments: launches over phase 13's paths {nonzero(total)} [{card}]", flush=True)
+    for name in ("hloss_terms_packed", "w_terms_packed"):
+        check(total.get(name, 0) > 0, f"{name} was never launched in phase 13")
+    return total
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: no CUDA card")
@@ -2728,6 +2969,19 @@ def main() -> None:
         launches[name] += host_counts.get(name, 0)
     print(f"phase 11: checkpoint, utils and baselines: {time.perf_counter() - t11:.1f} s "
           f"[{card}]", flush=True)
+
+    # ------------------------------------------------ 12. stress driver
+    t12 = time.perf_counter()
+    stress_counts = stress_phase(card, cs, ds)
+    print(f"phase 12: stress driver: {time.perf_counter() - t12:.1f} s [{card}]", flush=True)
+
+    # ------------------------------------------- 13. experiment runners
+    t13 = time.perf_counter()
+    experiment_counts = experiments_phase(card, loops, cs, ds)
+    print(f"phase 13: experiment runners: {time.perf_counter() - t13:.1f} s [{card}]",
+          flush=True)
+    for name in launches:
+        launches[name] += stress_counts.get(name, 0) + experiment_counts.get(name, 0)
     print(f"total: {time.perf_counter() - t_start:.1f} s [{card}]", flush=True)
 
     kernels = [

@@ -10,4 +10,6 @@ kernels' compiled code with that of another copy of the sources, and
 ``wpass_tune`` and ``hpass_tune`` time variants of the W and H passes to
 split their time by phase; ``ab_time`` times the production kernels and the
 fused loops of one tree, for comparing two trees on one card.
+``stress_solve`` is the randomized stress sweep of ``solve``, the estimator
+and the kernels' geometry planners (the counterpart of ``tools/stress_solve.py``).
 """

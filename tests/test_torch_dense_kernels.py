@@ -164,7 +164,7 @@ def test_h_terms_equals_hloss_terms_bitwise(mode):
 
 def test_cpu_tensors_do_not_count_launches():
     c = _operands(240, 250, "parity", np.float64)
-    ds.LAUNCHES.update(hloss_terms=0, h_terms=0, w_terms=0, loglik_sum=0)
+    ds.LAUNCHES.update(dict.fromkeys(ds.LAUNCHES, 0))  # every form's counter
     ds.hloss_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), eps=EPS, m_real=240, n_real=250, bm=32)
     ds.h_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), eps=EPS, bm=32)
     ds.w_terms(_t(c["W"]), _t(c["H"]), _t(c["Ym"]), _t(c["Ym2"]), eps=EPS, n_real=250, bm=32)

@@ -311,6 +311,14 @@ def test_sources_cover_the_host_surface_and_the_compat_shim():
             ("nbmf_mm_compat_torch", "_utils.py")} <= names
 
 
+def test_sources_cover_the_stress_driver_and_the_experiments():
+    names = {(p.parent.name, p.name) for p in _port_sources()}
+    assert {("tools", "stress_solve.py"), ("experiments", "__init__.py"),
+            ("experiments", "data.py"), ("experiments", "reproduce_magron2022.py"),
+            ("experiments", "benchmark_suite.py"), ("experiments", "flagship_scale.py"),
+            ("experiments", "validate_implementation.py")} <= names
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: f"{p.parent.name}/{p.name}")
 def test_no_port_source_imports_jax_or_the_jax_package(path):
     assert not {"jax", "jaxlib", "nbmf_mm_tpu", "nbmf_mm_compat"} & _imported_roots(path)
