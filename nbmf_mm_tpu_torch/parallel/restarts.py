@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.profiling import span
+
 __all__ = ["vmapped_solve"]
 
 
@@ -33,7 +35,9 @@ def vmapped_solve(core, data, inits, hypers, keep_all: bool = False):
     paper's 10-init mean +- std tables) and ``None`` otherwise.
     """
     results = core(*data, *inits, *hypers)
-    final_losses = results[4]
-    best = int(np.argmin(final_losses.cpu().numpy()))
-    best_result = tuple(x[best] for x in results)
+    with span("nbmf_mm.select"):
+        final_losses = results[4]
+        with span("nbmf_mm.wait.argmin"):
+            best = int(np.argmin(final_losses.cpu().numpy()))
+        best_result = tuple(x[best] for x in results)
     return best_result, best, final_losses, results if keep_all else None

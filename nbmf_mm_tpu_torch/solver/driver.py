@@ -41,6 +41,14 @@ routing of sparse input densifies it and gives the dense-input result.
 bf16 (:mod:`~nbmf_mm_tpu_torch.ops.tiers` defines both); the loops pass the
 tier to every kernel and plain product, and the kernel wrappers pick the
 bf16-data instances from the operands' dtype.
+
+While a profiler records (:func:`~nbmf_mm_tpu_torch.utils.profiling.trace`),
+``solve`` marks its layers with spans (:func:`~nbmf_mm_tpu_torch.utils.profiling.span`):
+``nbmf_mm.solve`` around the call; in it ``nbmf_mm.stage`` (``init_draw``,
+``init_copy``, ``operands``), ``nbmf_mm.loop`` with one ``nbmf_mm.sweep`` a
+sweep, ``nbmf_mm.select`` for restarts and ``nbmf_mm.finish``; and
+``nbmf_mm.wait.<site>`` around each blocking host read (``stop_flag``,
+``binary_scan``, ``n_obs``, ``result``, ``argmin``, ``drift``).
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from ..ops.updates import (
     precompute_masked_terms,
 )
 from ..utils import debugging
+from ..utils.profiling import span
 
 __all__ = ["nbmf_mm_solver", "solve", "SolverResult"]
 
@@ -219,7 +228,8 @@ def _exactly_binary(A: Optional[torch.Tensor]) -> bool:
     binary): the eligibility rule for the bit-packed loop."""
     if A is None:
         return True
-    return bool(((A == 0) | (A == 1)).all())
+    with span("nbmf_mm.wait.binary_scan"):
+        return bool(((A == 0) | (A == 1)).all())
 
 
 def _resolve_precision(precision, data_dtype=None) -> str:
@@ -294,7 +304,8 @@ def _loop_result(W, H, losses, n_iter, final_loss, done, lead):
     initialization ``n_iter`` and ``done`` as an int and a bool."""
     if lead:
         return W, H, losses, n_iter, final_loss, done
-    return W, H, losses, int(n_iter), final_loss, bool(done)
+    with span("nbmf_mm.wait.result"):
+        return W, H, losses, int(n_iter), final_loss, bool(done)
 
 
 def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
@@ -320,29 +331,34 @@ def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
         alpha = torch.as_tensor(alpha, dtype=torch.float64).reshape(lead).cpu().numpy()
     if not _is_scalar(beta):
         beta = torch.as_tensor(beta, dtype=torch.float64).reshape(lead).cpu().numpy()
-    W, H = W0, H0
-    it, all_done = 0, False
-    check_nan = debugging.nan_checks_enabled()
-    while it < max_iter and not all_done:
-        W_new, H_new = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta, n_real=n_real,
-                                eps=eps, projection=projection, precision=precision)
-        loss = map_objective(W_new, H_new, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs, eps=eps,
-                             precision=precision)
-        if check_nan:
-            debugging.check_finite("plain loop", it, W=W_new, H=H_new, loss=loss)
-        if verbose > 0 and not lead and it % 10 == 0:
-            print(f"Iter {it}: Loss = {float(loss)}")
-        # The stopping sweep's update and loss are kept (len(losses) ==
-        # n_iter); a lane frozen earlier keeps its carry.
-        W, H = _keep_frozen(done, W, H, W_new, H_new, lead)
-        losses[..., it] = torch.where(done, losses[..., it], loss)
-        newly_done = (_relative_change(prev, loss) < tol) if it > 0 else False
-        prev = torch.where(done, prev, loss)
-        n_iter = torch.where(done, n_iter, it + 1)
-        done = done | newly_done
-        it += 1
-        all_done = it > 1 and bool(done.all())  # the sweep's one host read
-    return _loop_result(W, H, losses, n_iter, prev, done, lead)
+    with span("nbmf_mm.loop"):
+        W, H = W0, H0
+        it, all_done = 0, False
+        check_nan = debugging.nan_checks_enabled()
+        while it < max_iter and not all_done:
+            with span("nbmf_mm.sweep"):
+                W_new, H_new = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta,
+                                        n_real=n_real, eps=eps, projection=projection,
+                                        precision=precision)
+                loss = map_objective(W_new, H_new, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs,
+                                     eps=eps, precision=precision)
+                if check_nan:
+                    debugging.check_finite("plain loop", it, W=W_new, H=H_new, loss=loss)
+                if verbose > 0 and not lead and it % 10 == 0:
+                    print(f"Iter {it}: Loss = {float(loss)}")
+                # The stopping sweep's update and loss are kept (len(losses) ==
+                # n_iter); a lane frozen earlier keeps its carry.
+                W, H = _keep_frozen(done, W, H, W_new, H_new, lead)
+                losses[..., it] = torch.where(done, losses[..., it], loss)
+                newly_done = (_relative_change(prev, loss) < tol) if it > 0 else False
+                prev = torch.where(done, prev, loss)
+                n_iter = torch.where(done, n_iter, it + 1)
+                done = done | newly_done
+                it += 1
+                if it > 1:
+                    with span("nbmf_mm.wait.stop_flag"):  # the sweep's one host read
+                        all_done = bool(done.all())
+        return _loop_result(W, H, losses, n_iter, prev, done, lead)
 
 
 def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, packed: bool, eps,
@@ -415,44 +431,47 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
             W_new = cs.apply_col_validity(project_simplex_duchi(W_raw / n_real, dim=-2), m_real)
         return W_new, H_new
 
-    W, H = W0p, H0p
-    it, all_done = 0, False
-    check_nan = debugging.nan_checks_enabled()
-    while it < max_iter:
-        Num, Den, ll = hloss(W, H)
-        if it >= 1:
-            loss = objective_from_ll(ll, H)  # loss of sweep it-1
-            if check_nan:
-                debugging.check_finite("fused loop", it - 1, loss=loss)
-            if verbose > 0 and not lead and (it - 1) % 10 == 0:
-                print(f"Iter {it - 1}: Loss = {float(loss)}")
-            live = ~done
-            losses[..., it - 1] = torch.where(live, loss, losses[..., it - 1])
-            if it >= 2:  # the stopping test needs two recorded losses
-                done = done | (_relative_change(prev, loss) < tol)
-                all_done = bool(done.all())  # the sweep's one host read
-            prev = torch.where(live, loss, prev)
-            if all_done:
-                break
-        W, H = _keep_frozen(done, W, H, *finish_sweep(W, H, Num, Den), lead)
-        if check_nan:
-            debugging.check_finite("fused loop", it, W=W, H=H)
-        n_iter = torch.where(done, n_iter, it + 1)
-        it += 1
+    with span("nbmf_mm.loop"):
+        W, H = W0p, H0p
+        it, all_done = 0, False
+        check_nan = debugging.nan_checks_enabled()
+        while it < max_iter:
+            with span("nbmf_mm.sweep"):
+                Num, Den, ll = hloss(W, H)
+                if it >= 1:
+                    loss = objective_from_ll(ll, H)  # loss of sweep it-1
+                    if check_nan:
+                        debugging.check_finite("fused loop", it - 1, loss=loss)
+                    if verbose > 0 and not lead and (it - 1) % 10 == 0:
+                        print(f"Iter {it - 1}: Loss = {float(loss)}")
+                    live = ~done
+                    losses[..., it - 1] = torch.where(live, loss, losses[..., it - 1])
+                    if it >= 2:  # the stopping test needs two recorded losses
+                        done = done | (_relative_change(prev, loss) < tol)
+                        with span("nbmf_mm.wait.stop_flag"):  # the sweep's one host read
+                            all_done = bool(done.all())
+                    prev = torch.where(live, loss, prev)
+                    if all_done:
+                        break
+                W, H = _keep_frozen(done, W, H, *finish_sweep(W, H, Num, Den), lead)
+                if check_nan:
+                    debugging.check_finite("fused loop", it, W=W, H=H)
+                n_iter = torch.where(done, n_iter, it + 1)
+                it += 1
 
-    final_loss = prev
-    if not all_done:
-        # max_iter ran out for the live lanes: their last sweep's loss was
-        # never recorded.  Their counters stand at ``it``.
-        loss_fin = objective_from_ll(final_ll(W, H), H)
-        live, last = ~done, max(it - 1, 0)
-        if check_nan:
-            debugging.check_finite("fused loop", last, loss=loss_fin)
-        losses[..., last] = torch.where(live, loss_fin, losses[..., last])
-        final_loss = torch.where(live, loss_fin, prev)
-        if it >= 2:
-            done = done | (live & (_relative_change(prev, loss_fin) < tol))
-    return _loop_result(W, H, losses, n_iter, final_loss, done, lead)
+        final_loss = prev
+        if not all_done:
+            # max_iter ran out for the live lanes: their last sweep's loss was
+            # never recorded.  Their counters stand at ``it``.
+            loss_fin = objective_from_ll(final_ll(W, H), H)
+            live, last = ~done, max(it - 1, 0)
+            if check_nan:
+                debugging.check_finite("fused loop", last, loss=loss_fin)
+            losses[..., last] = torch.where(live, loss_fin, losses[..., last])
+            final_loss = torch.where(live, loss_fin, prev)
+            if it >= 2:
+                done = done | (live & (_relative_change(prev, loss_fin) < tol))
+        return _loop_result(W, H, losses, n_iter, final_loss, done, lead)
 
 
 def _renormalize_drifted(A: torch.Tensor, dim: int) -> torch.Tensor:
@@ -463,7 +482,8 @@ def _renormalize_drifted(A: torch.Tensor, dim: int) -> torch.Tensor:
     if A.numel() == 0:
         return A
     sums = A.sum(dim=dim, keepdim=True)
-    drift = float((sums - 1.0).abs().max())
+    with span("nbmf_mm.wait.drift"):
+        drift = float((sums - 1.0).abs().max())
     if np.isfinite(drift) and drift > tol:
         safe = sums > tiny
         A = torch.where(safe, A / torch.where(safe, sums, 1.0), A)
@@ -568,9 +588,9 @@ def _check_packed_contract(*, orientation, mask, packed, dtype, data_dtype=None)
                          f"are float32; got dtype={dtype})")
 
 
-def _packed_words(pm: PackedMatrix, route: str, device: torch.device) -> torch.Tensor:
-    """The words of a :class:`PackedMatrix` as the staged operand on
-    ``device``, after checking that they were packed for the geometry
+def _check_packed_words(pm: PackedMatrix, route: str) -> None:
+    """Check that the words of a :class:`PackedMatrix` can be the staged
+    operand: the fused loop runs, and they were packed for the geometry
     ``solve`` plans (stripe-local bit planes only combine with the same
     ``block_m``)."""
     if route != "fused":
@@ -585,7 +605,6 @@ def _packed_words(pm: PackedMatrix, route: str, device: torch.device) -> torch.T
             f"PackedMatrix(block_m={pm.block_m}, padded {tuple(pm.padded_shape)}, "
             f"{pm.words.dtype}) does not match the geometry planned for {(m, n)}: "
             f"block_m={bm}, padded {(Mp, Np)}, int32 words; rebuild it with pack_matrix")
-    return pm.words.to(device).contiguous()
 
 
 def _route_sparse(Y, mask, *, eligible: bool, packed: Optional[bool], device: torch.device):
@@ -728,179 +747,203 @@ def solve(
     ``mesh`` raises ``NotImplementedError``; ``mesh_axes`` is checked only
     with it.
     """
-    if orientation not in _ORIENTATIONS:
-        raise ValueError(f"orientation must be one of {_ORIENTATIONS}, got {orientation!r}")
-    if projection not in ("normalize", "duchi"):
-        raise ValueError(f"projection must be 'normalize' or 'duchi', got {projection!r}")
-    if mask_mode not in ("parity", "corrected"):
-        raise ValueError(f"mask_mode must be 'parity' or 'corrected', got {mask_mode!r}")
-    if n_init < 1:
-        raise ValueError(f"n_init must be >= 1, got {n_init}")
-    _check_mesh(mesh, mesh_axes, "mesh")
-    dtype, data_dtype = _resolve_dtype(dtype)
-    tier = _resolve_precision(precision, data_dtype)
-    device = cs.resolve_device(device)
-    _check_interpret(pallas_interpret, device)
-    k = int(n_components)
-    if type(Y).__name__ == "PackedMatrix" and not isinstance(Y, PackedMatrix):
-        raise TypeError(
-            f"{type(Y).__module__}.PackedMatrix is another package's: convert its words with "
-            "nbmf_mm_tpu_torch.utils.interop.packed_from_reference"
-        )
-    if isinstance(Y, PackedMatrix):
-        _check_packed_contract(orientation=orientation, mask=mask, packed=packed, dtype=dtype,
-                               data_dtype=data_dtype)
-    route = _resolve_backend(backend, dtype, device, True, packed, k)
-    if packed is True and data_dtype is not None:
-        raise ValueError("packed=True is incompatible with dtype='bfloat16': packing replaces "
-                         "the data stream (and is both smaller and exact)")
-    # The data is stored bf16 for the kernels; the plain loop keeps it in the
-    # compute dtype and runs its products at DEFAULT (the JAX package's XLA
-    # emulation of the mode).
-    data_dtype = data_dtype if route == "fused" else None
+    with span("nbmf_mm.solve"):
+        with span("nbmf_mm.stage"):
+            if orientation not in _ORIENTATIONS:
+                raise ValueError(f"orientation must be one of {_ORIENTATIONS}, "
+                                 f"got {orientation!r}")
+            if projection not in ("normalize", "duchi"):
+                raise ValueError(f"projection must be 'normalize' or 'duchi', "
+                                 f"got {projection!r}")
+            if mask_mode not in ("parity", "corrected"):
+                raise ValueError(f"mask_mode must be 'parity' or 'corrected', "
+                                 f"got {mask_mode!r}")
+            if n_init < 1:
+                raise ValueError(f"n_init must be >= 1, got {n_init}")
+            _check_mesh(mesh, mesh_axes, "mesh")
+            dtype, data_dtype = _resolve_dtype(dtype)
+            tier = _resolve_precision(precision, data_dtype)
+            device = cs.resolve_device(device)
+            _check_interpret(pallas_interpret, device)
+            k = int(n_components)
+            if type(Y).__name__ == "PackedMatrix" and not isinstance(Y, PackedMatrix):
+                raise TypeError(
+                    f"{type(Y).__module__}.PackedMatrix is another package's: convert its "
+                    "words with nbmf_mm_tpu_torch.utils.interop.packed_from_reference"
+                )
+            if isinstance(Y, PackedMatrix):
+                _check_packed_contract(orientation=orientation, mask=mask, packed=packed,
+                                       dtype=dtype, data_dtype=data_dtype)
+            route = _resolve_backend(backend, dtype, device, True, packed, k)
+            if packed is True and data_dtype is not None:
+                raise ValueError("packed=True is incompatible with dtype='bfloat16': packing "
+                                 "replaces the data stream (and is both smaller and exact)")
+            # The data is stored bf16 for the kernels; the plain loop keeps it in the
+            # compute dtype and runs its products at DEFAULT (the JAX package's XLA
+            # emulation of the mode).
+            data_dtype = data_dtype if route == "fused" else None
 
-    t_start = time.time()
-    sparse_masked = False  # Y and mask as canonical binary CSRs
-    if _is_scipy_sparse(Y):
-        eligible = (orientation == "beta-dir" and packed is not False and data_dtype is None
-                    and dtype == torch.float32 and route == "fused")
-        Y, mask, sparse_masked = _route_sparse(Y, mask, eligible=eligible, packed=packed,
-                                               device=device)
-    words = _packed_words(Y, route, device) if isinstance(Y, PackedMatrix) else None
-    if words is None and not sparse_masked:
-        # bf16 data is cast before it is masked or padded, so that no
-        # full-size float32 copy lingers.
-        Y = _to_tensor(Y, data_dtype or dtype, device)
-        if mask is not None:
-            mask = _to_tensor(mask, data_dtype or dtype, device)
+            t_start = time.perf_counter()
+            sparse_masked = False  # Y and mask as canonical binary CSRs
+            if _is_scipy_sparse(Y):
+                eligible = (orientation == "beta-dir" and packed is not False
+                            and data_dtype is None and dtype == torch.float32
+                            and route == "fused")
+                Y, mask, sparse_masked = _route_sparse(Y, mask, eligible=eligible,
+                                                       packed=packed, device=device)
+            words = isinstance(Y, PackedMatrix)
+            if words:
+                _check_packed_words(Y, route)
+            elif not sparse_masked:
+                # bf16 data is cast before it is masked or padded, so that no
+                # full-size float32 copy lingers.
+                Y = _to_tensor(Y, data_dtype or dtype, device)
+                if mask is not None:
+                    mask = _to_tensor(mask, data_dtype or dtype, device)
 
-    transposed = orientation == "dir-beta"
-    if transposed:
-        Y = Y.T
-        if mask is not None:
-            mask = mask.T
-        if (W_init is None) != (H_init is None):
-            raise ValueError(
-                "orientation='dir-beta' with a custom init requires BOTH W_init and H_init"
-            )
-        if W_init is not None:
-            W_init, H_init = np.asarray(H_init).T, np.asarray(W_init).T
+            transposed = orientation == "dir-beta"
+            if transposed:
+                Y = Y.T
+                if mask is not None:
+                    mask = mask.T
+                if (W_init is None) != (H_init is None):
+                    raise ValueError(
+                        "orientation='dir-beta' with a custom init requires BOTH W_init and "
+                        "H_init"
+                    )
+                if W_init is not None:
+                    W_init, H_init = np.asarray(H_init).T, np.asarray(W_init).T
 
-    m, n = Y.shape
-    seed = (int(np.random.SeedSequence().entropy % (2**63)) if random_state is None
-            else int(random_state))
+            m, n = Y.shape
+            seed = (int(np.random.SeedSequence().entropy % (2**63)) if random_state is None
+                    else int(random_state))
 
-    custom_init = W_init is not None or H_init is not None
-    if custom_init and n_init > 1:
-        raise ValueError("n_init > 1 is incompatible with explicit W_init/H_init")
-    # U(0.1, 0.9) inits with a leading restart axis, then moved to the device.
-    W0_ext, H0 = _random_uniform_inits(seed, n_init, m, n, k, dtype)
-    if W_init is not None:
-        W0_ext = torch.tensor(np.asarray(W_init), dtype=dtype)[None]
-    if H_init is not None:
-        H0 = torch.tensor(np.asarray(H_init), dtype=dtype)[None]
-    if tuple(W0_ext.shape[1:]) != (m, k):
-        raise ValueError(f"W_init must have shape {(m, k)}, got {tuple(W0_ext.shape[1:])}")
-    if tuple(H0.shape[1:]) != (k, n):
-        raise ValueError(f"H_init must have shape {(k, n)}, got {tuple(H0.shape[1:])}")
-    W0 = torch.stack([_internal_simplex_factor(w, device) for w in W0_ext])  # (n_init, k, m)
-    H0 = H0.to(device).contiguous()
+            custom_init = W_init is not None or H_init is not None
+            if custom_init and n_init > 1:
+                raise ValueError("n_init > 1 is incompatible with explicit W_init/H_init")
+            # U(0.1, 0.9) inits with a leading restart axis, then moved to the device.
+            with span("nbmf_mm.init_draw"):
+                W0_ext, H0 = _random_uniform_inits(seed, n_init, m, n, k, dtype)
+            if W_init is not None:
+                W0_ext = torch.tensor(np.asarray(W_init), dtype=dtype)[None]
+            if H_init is not None:
+                H0 = torch.tensor(np.asarray(H_init), dtype=dtype)[None]
+            if tuple(W0_ext.shape[1:]) != (m, k):
+                raise ValueError(f"W_init must have shape {(m, k)}, "
+                                 f"got {tuple(W0_ext.shape[1:])}")
+            if tuple(H0.shape[1:]) != (k, n):
+                raise ValueError(f"H_init must have shape {(k, n)}, got {tuple(H0.shape[1:])}")
+            with span("nbmf_mm.init_copy"):
+                # (n_init, k, m) and (n_init, k, n); the fused loop takes them padded
+                W0 = torch.stack([_internal_simplex_factor(w, device) for w in W0_ext])
+                H0 = H0.to(device).contiguous()
+                if route == "fused":
+                    bm, Mp, Np = cs.plan_packing(m, n)
+                    inits = (_pad_last(W0, Mp), _pad_last(H0, Np))
+                else:
+                    inits = (W0, H0)
 
-    if mask is None:
-        n_obs = float(m * n)
-    else:
-        # A canonical binary CSR is counted by its stored nonzeros, never
-        # from a dense copy.
-        n_obs = float(mask.count_nonzero() if sparse_masked else torch.count_nonzero(mask))
-        if n_obs == 0.0:
-            raise ValueError(
-                "mask has no observed entries (all zeros): the per-entry "
-                "objective is undefined with n_obs == 0"
-            )
+            if mask is None:
+                n_obs = float(m * n)
+            else:
+                # A canonical binary CSR is counted by its stored nonzeros, never
+                # from a dense copy.
+                with span("nbmf_mm.wait.n_obs"):
+                    n_obs = float(mask.count_nonzero() if sparse_masked
+                                  else torch.count_nonzero(mask))
+                if n_obs == 0.0:
+                    raise ValueError(
+                        "mask has no observed entries (all zeros): the per-entry "
+                        "objective is undefined with n_obs == 0"
+                    )
 
-    if return_all and n_init <= 1:
-        raise ValueError("return_all requires n_init > 1")
+            if return_all and n_init <= 1:
+                raise ValueError("return_all requires n_init > 1")
 
-    if max_iter <= 0:
-        # The first restart's factors, as the JAX package returns them.
-        W_final, H_final = (H0[0].T, W0[0]) if transposed else (W0[0].T, H0[0])
-        W_final, H_final, losses = _results(
-            W_final, H_final, torch.zeros(0, dtype=dtype, device=device),
-            device_results=device_results)
-        return SolverResult(W=W_final, H=H_final, losses=losses,
-                            time_elapsed=time.time() - t_start, n_iter=0, converged=False,
-                            seed=seed)
+            if max_iter <= 0:
+                # The first restart's factors, as the JAX package returns them.
+                W_final, H_final = (H0[0].T, W0[0]) if transposed else (W0[0].T, H0[0])
+                W_final, H_final, losses = _results(
+                    W_final, H_final, torch.zeros(0, dtype=dtype, device=device),
+                    device_results=device_results)
+                return SolverResult(W=W_final, H=H_final, losses=losses,
+                                    time_elapsed=time.perf_counter() - t_start, n_iter=0,
+                                    converged=False, seed=seed)
 
-    # One initialization solves unbatched; restarts go through the same core
-    # with a leading lane axis on the factors, and print nothing per sweep.
-    loop = dict(max_iter=max_iter, projection=projection,
-                verbose=verbose if n_init == 1 else 0)
-    if route == "fused":
-        # The operands the kernels stream (the JAX package's driver.py:957-977):
-        # Y1 = Ym = Y or Y*mask, Y2 = Ym2 = (1-Y)*mask when masked; corrected
-        # mode's Yc is Ym2 itself.
-        bm, Mp, Np = cs.plan_packing(m, n)
-        if words is not None:
-            Y1, Y2, use_packed = words, None, True
-        elif sparse_masked:
-            # Both operands are sparse too: Ym = Y*mask, Ym2 = mask - Ym, each
-            # packed from row chunks, one transient uint8 chunk at a time.
-            Ym = Y.astype(np.int8).multiply(mask.astype(np.int8)).tocsr()
-            Ym2 = (mask.astype(np.int8) - Ym).tocsr()
-            Y1, Y2 = (torch.from_numpy(pack_sparse_words(A, Mp, Np, bm)).to(device)
-                      for A in (Ym, Ym2))
-            use_packed = True
-            del Ym, Ym2
+            # One initialization solves unbatched; restarts go through the same core
+            # with a leading lane axis on the factors, and print nothing per sweep.
+            loop = dict(max_iter=max_iter, projection=projection,
+                        verbose=verbose if n_init == 1 else 0)
+            with span("nbmf_mm.operands"):
+                if route == "fused":
+                    # The operands the kernels stream (the JAX package's
+                    # driver.py:957-977): Y1 = Ym = Y or Y*mask, Y2 = Ym2 =
+                    # (1-Y)*mask when masked; corrected mode's Yc is Ym2 itself.
+                    if words:
+                        Y1, Y2, use_packed = Y.words.to(device).contiguous(), None, True
+                    elif sparse_masked:
+                        # Both operands are sparse too: Ym = Y*mask, Ym2 = mask - Ym,
+                        # each packed from row chunks, one transient uint8 chunk at a
+                        # time.
+                        Ym = Y.astype(np.int8).multiply(mask.astype(np.int8)).tocsr()
+                        Ym2 = (mask.astype(np.int8) - Ym).tocsr()
+                        Y1, Y2 = (torch.from_numpy(pack_sparse_words(A, Mp, Np, bm)).to(device)
+                                  for A in (Ym, Ym2))
+                        use_packed = True
+                        del Ym, Ym2
+                    else:
+                        Y1, Y2, use_packed = _stage_dense(Y, mask, Mp=Mp, Np=Np, bm=bm,
+                                                          packed=packed)
+                        if packed is True and not use_packed:
+                            raise ValueError("packed=True requires exactly binary data "
+                                             "(and mask)")
+                    del Y, mask
+                    core = partial(_solve_core_fused, packed=use_packed, eps=eps, m_real=m,
+                                   n_real=n, bm=bm, mxu_precision=tier, **loop)
+                    data = (Y1, Y2 if mask_mode == "corrected" else None, Y2)
+                    hypers = (alpha, beta, tol, n_obs)
+                else:
+                    use_packed = False
+                    core = partial(_solve_core, precision=tier, **loop)
+                    data = precompute_masked_terms(Y, mask, mask_mode)
+                    hypers = (alpha, beta, tol, eps, n_obs, n)
+
+        all_results = all_final = None
+        if n_init == 1:
+            best = 0
+            W, H, losses, n_iter, _, done = core(*data, inits[0][0], inits[1][0], *hypers)
         else:
-            Y1, Y2, use_packed = _stage_dense(Y, mask, Mp=Mp, Np=Np, bm=bm, packed=packed)
-            if packed is True and not use_packed:
-                raise ValueError("packed=True requires exactly binary data (and mask)")
-        del Y, mask, words
-        core = partial(_solve_core_fused, packed=use_packed, eps=eps, m_real=m, n_real=n, bm=bm,
-                       mxu_precision=tier, **loop)
-        data = (Y1, Y2 if mask_mode == "corrected" else None, Y2)
-        inits = (_pad_last(W0, Mp), _pad_last(H0, Np))
-        hypers = (alpha, beta, tol, n_obs)
-    else:
-        use_packed = False
-        core = partial(_solve_core, precision=tier, **loop)
-        data = precompute_masked_terms(Y, mask, mask_mode)
-        inits = (W0, H0)
-        hypers = (alpha, beta, tol, eps, n_obs, n)
+            from ..parallel.restarts import vmapped_solve  # the package imports this module
 
-    all_results = all_final = None
-    if n_init == 1:
-        best = 0
-        W, H, losses, n_iter, _, done = core(*data, inits[0][0], inits[1][0], *hypers)
-    else:
-        from ..parallel.restarts import vmapped_solve  # the package imports this module
+            (W, H, losses, n_iter, _, done), best, all_final, all_results = vmapped_solve(
+                core, data, inits, hypers, keep_all=return_all)
+            with span("nbmf_mm.wait.result"):
+                n_iter, done, all_final = int(n_iter), bool(done), all_final.cpu().numpy()
 
-        (W, H, losses, n_iter, _, done), best, all_final, all_results = vmapped_solve(
-            core, data, inits, hypers, keep_all=return_all)
-        n_iter, done, all_final = int(n_iter), bool(done), all_final.cpu().numpy()
-    W, H = W[:, :m], H[:, :n]  # the fused loop's results come back padded
+        with span("nbmf_mm.finish"):
+            W, H = W[:, :m], H[:, :n]  # the fused loop's results come back padded
 
-    W_final, H_final = (H.T, W) if transposed else (W.T, H)  # external (m, k), (k, n)
-    W_final, H_final = _final_simplex_safeguard(W_final, H_final, orientation)
-    if verbose > 0 and done and n_iter < max_iter:
-        print(f"Converged at iteration {n_iter - 1}")
-    W_final, H_final, losses = _results(W_final, H_final, losses[:n_iter],
-                                        device_results=device_results)
-    result = SolverResult(
-        W=W_final,
-        H=H_final,
-        losses=losses,
-        time_elapsed=time.time() - t_start,
-        n_iter=n_iter,
-        converged=done,
-        best_restart=best,
-        all_final_losses=all_final,
-        seed=seed,
-        extras=_extras(route, use_packed, tier, data_dtype),
-    )
-    if all_results is not None:
-        _attach_all_results(result, all_results, m=m, n=n, transposed=transposed)
-    return result
+            W_final, H_final = (H.T, W) if transposed else (W.T, H)  # external (m, k), (k, n)
+            W_final, H_final = _final_simplex_safeguard(W_final, H_final, orientation)
+            if verbose > 0 and done and n_iter < max_iter:
+                print(f"Converged at iteration {n_iter - 1}")
+            W_final, H_final, losses = _results(W_final, H_final, losses[:n_iter],
+                                                device_results=device_results)
+            result = SolverResult(
+                W=W_final,
+                H=H_final,
+                losses=losses,
+                time_elapsed=time.perf_counter() - t_start,
+                n_iter=n_iter,
+                converged=done,
+                best_restart=best,
+                all_final_losses=all_final,
+                seed=seed,
+                extras=_extras(route, use_packed, tier, data_dtype),
+            )
+            if all_results is not None:
+                _attach_all_results(result, all_results, m=m, n=n, transposed=transposed)
+            return result
 
 
 def _extras(route: str, packed: bool, tier: str, data_dtype) -> dict:

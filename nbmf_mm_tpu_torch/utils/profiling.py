@@ -3,6 +3,8 @@
 
 - :func:`trace` records a ``torch.profiler`` trace of the enclosed region
   and writes it as a Chrome trace (viewable in Perfetto);
+- :func:`span` marks a region of the program in such a trace, and costs a
+  flag read when no profiler records;
 - :func:`sweep_timer` times a function's steady state: CUDA events on the
   card, the host clock on the CPU;
 - :func:`device_memory_stats` returns ``torch.cuda.memory_stats`` of a card,
@@ -17,7 +19,9 @@ import time
 
 import torch
 
-__all__ = ["trace", "sweep_timer", "device_memory_stats"]
+__all__ = ["trace", "span", "sweep_timer", "device_memory_stats"]
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -32,6 +36,16 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A ``record_function`` span named ``name`` while a profiler records
+    (:func:`trace`, ``torch.profiler.profile``), else one shared no-op
+    context.  The profiler keeps it as a ``user_annotation`` event, timed on
+    the clock of the device's kernels and copies in the same trace."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _on_card(args) -> bool:
