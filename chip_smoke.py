@@ -142,6 +142,7 @@ nbmf_mm_compat_torch only.  Needs one CUDA card.
 
 from __future__ import annotations
 
+import hashlib
 import importlib
 import json
 import os
@@ -191,13 +192,20 @@ TF32_TC_PEAK = 495e12
 # spills.
 WGMMA_KERNELS = r"wgmma_kernel|stage_[wh]_(bf16|tf32)_kernel"
 # Phase 3's edge shapes of the W pass's column split (label, (m, n), k): the
-# serving chunks, ranks across every instance, n neither a multiple of the
-# column tile nor of a chunk (n_real inside the last tile), one word row in a
-# 64-row block (stripe bm = 32).
+# serving chunks, ranks across every instance and on both sides of each
+# instance's choice of phase-B body (row by row at k = 33, 96, 112, 129 and
+# 200; h held at 1, 17, 64, 113, 128 and 256), n neither a multiple of the
+# 32-column tile nor of a chunk (n_real inside the last tile), three word
+# rows (the last 64-row block half empty), one word row in a 64-row block
+# (stripe bm = 32).  Each also runs W_EDGE_LANES lanes against one-lane
+# launches.
 W_EDGES = (("serving chunk 8192", (8_192, 10_000), 128),
            ("serving chunk 64", (64, 10_000), 128),
-           *((f"ragged k={k}", (1_000, 1_234), k) for k in (1, 17, 33, 200, 256)),
+           *((f"ragged k={k}", (1_000, 1_234), k)
+             for k in (1, 17, 33, 64, 96, 112, 113, 128, 129, 200, 256)),
+           ("three word rows", (90, 1_234), 128),
            ("single stripe bm=32", (20, 1_000), 8))
+W_EDGE_LANES = 16
 # Phase 3's edge shapes of the H pass's row split (label, (m, n), k): ranks
 # across every instance at n neither a multiple of the 64-column block nor
 # of 4 (n_real inside the last block) and m_real inside the last word rows
@@ -604,28 +612,46 @@ def check_dense_equals_packed(name, Y, k, card, cs, ds):
         check(same_h and same_T and same_ll, f"{name} {mode}: dense differs from packed")
 
 
+def digest(*tensors) -> str:
+    """A short hash of the tensors' bytes, to compare outputs across trees."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def check_wpass_edges(card, cs, ds, errors):
     """K2 and the dense W pass at the shapes that hit the column split's
     edges (W_EDGES): against their plain versions in all three mask modes,
     launched twice for bitwise repeatability, dense == packed bitwise on
-    binary data, and the dense pass on [0,1] data under a weighted mask."""
+    binary data, the dense pass on [0,1] data under a weighted mask, and
+    W_EDGE_LANES lanes of both against one-lane launches bitwise.  Returns
+    ``{label: digest}`` of every T computed from the fixed draws, for a
+    comparison with another tree's kernels on the same draws."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    digests = {}
     for label, (m, n), k in W_EDGES:
         rng = np.random.default_rng(m + n + k)
         Y = (rng.random((m, n)) < 0.3).astype(np.float32)
         soft = rng.random((m, n)).astype(np.float32)
         bm, Mp, Np = cs.plan_packing(m, n)
         plan = cs.plan_w_split(Mp, Np, k, n_sm)
-        worst, repeat, same = 0.0, True, True
+        worst, repeat, same, lanes_same = 0.0, True, True, True
+        W, H = lane_factors(m, n, k, Mp, Np, W_EDGE_LANES, 10 + k)
         for mode in MODES:
             o = operands(Y, k, mode, 8, cs)
             s = operands(soft, k, mode, 9, cs, weighted=True)
-            k2 = lambda: cs.w_terms_packed(o["W"], o["H"], o["words"], o["words2_w"], eps=EPS,
-                                           n_real=n, bm=bm)
+            k2 = lambda W=o["W"], H=o["H"]: cs.w_terms_packed(W, H, o["words"], o["words2_w"],
+                                                              eps=EPS, n_real=n, bm=bm)
             dw = lambda: ds.w_terms(o["W"], o["H"], o["Ym"], o["Ym2"], eps=EPS, n_real=n, bm=bm)
-            sw = lambda: ds.w_terms(s["W"], s["H"], s["Ym"], s["Ym2"], eps=EPS, n_real=n, bm=bm)
+            sw = lambda W=s["W"], H=s["H"]: ds.w_terms(W, H, s["Ym"], s["Ym2"], eps=EPS,
+                                                       n_real=n, bm=bm)
             T, T2, D, D2, S, S2 = k2(), k2(), dw(), dw(), sw(), sw()
+            TL, SL = k2(W, H), sw(W, H)
+            lanes_same &= all(torch.equal(TL[r], k2(W[r], H[r])) and
+                              torch.equal(SL[r], sw(W[r], H[r])) for r in range(W_EDGE_LANES))
             torch.cuda.synchronize()
+            digests[f"{label} {mode}"] = digest(T, S, TL, SL)
             pT = cs.w_terms_packed_plain(o["W"], o["H"], o["words"], o["words2_w"], eps=EPS,
                                          n_real=n, bm=bm)
             pS = ds.w_terms_plain(s["W"], s["H"], s["Ym"], s["Ym2"], eps=EPS, n_real=n)
@@ -637,10 +663,14 @@ def check_wpass_edges(card, cs, ds, errors):
         print(f"W pass {label} {m}x{n} k={k} (Mp {Mp}, Np {Np}, bm {bm}; {plan.nsplit} column "
               f"chunks, {plan.blocks} blocks): K2 and dense W (binary, weighted [0,1]) in "
               f"{'/'.join(MODES)}: max rel err {worst:.3e} (bound {TOL_TERMS:g} of max|plain|); "
-              f"bitwise repeat {repeat}; dense == packed bitwise {same} [{card}]", flush=True)
+              f"bitwise repeat {repeat}; dense == packed bitwise {same}; {W_EDGE_LANES} lanes == "
+              f"one-lane launches bitwise {lanes_same}; T digests "
+              f"{' '.join(digests[f'{label} {mode}'] for mode in MODES)} [{card}]", flush=True)
         check(worst <= TOL_TERMS, f"W pass {label}: kernel disagrees with plain")
         check(repeat, f"W pass {label}: outputs differ between two launches")
         check(same, f"W pass {label}: dense differs from packed")
+        check(lanes_same, f"W pass {label}: a lane differs from the one-lane launch")
+    return digests
 
 
 def check_hpass_edges(card, cs, ds, errors):

@@ -60,20 +60,45 @@
 //     to k = 128 (one above), for every instance, h_terms included.
 //
 // The W pass (wpass_kernel) replaces the TPU kernels w_terms_packed
-// (pallas_sweep.py:947), w_terms (:333) and w_terms_stripe (:650), and is
-// designed for this card against what held back the first port of it (one
-// block per word row walking every column, 9 TFLOP/s):
-//   - FMAs per issue slot: register micro-tiles for both products with
-//     16-byte shared loads (phase B: 8 k rows x 4 data rows a thread, 256
-//     FMAs per 24 loads) and 1 - h formed once per tile into its own shared
-//     array instead of inside every FMA;
+// (pallas_sweep.py:947), w_terms (:333) and w_terms_stripe (:650).  Its work
+// is two products of different shapes with an elementwise step between:
+// phase A, the 64 x 32 WH tile of a block (contraction over k, a third of
+// the FMAs), then p and q, then phase B, the k x 64 sums of H.P^T and
+// (1-H).Q^T held in registers across every column (two thirds).  What
+// bounds it on this card, and what the design does about each:
+//   - shared-memory loads.  A 16-byte load is served a quarter-warp at a
+//     time, about a cycle for each 128 distinct bytes the quarters ask for,
+//     broadcasts merging only inside a quarter.  So the register tiles are
+//     large (phase A 4 x 4 a thread, 8 loads per 64 FMAs; phase B 8 k rows x
+//     8 data rows, 16 loads per 256 FMAs), and lanes are laid out so that a
+//     quarter-warp reads at most 4 distinct chunks a load;
+//   - registers: 64 accumulators a thread in phase B.  A thread holds a
+//     step's 8 float4 of h and streams p one row at a time, so the next
+//     row's load runs behind the FMAs of this one within 128 registers;
+//   - serialised phases.  With phase A, the elementwise step and the copies
+//     in the same warps as phase B, every barrier idles the FMA pipes unless
+//     another block fills them, and two blocks of large tiles do not fit in
+//     shared memory.  So at k = 65..128 a block is warp-specialised: two
+//     groups of 4 producer warps take alternate tiles (phase A, the IEEE
+//     reciprocals, 1 - h, the cp.async copies) and 8 consumer warps run
+//     phase B, meeting on named barriers in a ring of tiles that fills one
+//     SM's shared memory (224 KiB with two dense operands).  At other k one
+//     group of 8 warps runs the phases in turn, two blocks per SM up to
+//     k = 64 and one above;
 //   - filling the card: 64-row blocks times S column chunks, S planned on
-//     the host (cuda_sweep.plan_w_split) for at least two rounds of resident
-//     blocks, the S partials added in a fixed order by a second kernel;
-//   - stalls on loads: the next H tile and operand tile arrive by cp.async
-//     into a second buffer while the current tile computes;
-//   - registers: __launch_bounds__ keeps two 256-thread blocks on an SM
-//     (128 registers, no spills, by ptxas -v) up to k = 128.
+//     the host (cuda_sweep.plan_w_split, from the pass's own occupancy) for
+//     at least two rounds of resident blocks, the S partials added in a
+//     fixed order by a second kernel.
+// Designs measured slower at 10240^2, k = 128 (H100 SXM, 700 W): the first port (one block per
+// word row walking every column, 9 TFLOP/s); 2 x 4 phase-A tiles and 8 x 4
+// phase-B tiles of both sums a thread at two 256-thread blocks per SM (128
+// registers; 2.82 ms); the same at one block per SM with 168 registers
+// (3.51 ms: more registers, same loads per FMA, half the warps); 4 x 4 and 8
+// x 8 tiles on 64-column tiles at one 256-thread block per SM (2.91 ms: the
+// loads per FMA fell, but the serialised phases grew from 0.18 to 0.67 ms);
+// one group of 4 producer warps (2.62 ms: its own latency paced the
+// pipeline); consumers that hold p and load h per k row (2.51 ms: each h
+// load waited on its FMAs).
 // fp32 FMA on the CUDA cores throughout.  The reduced-precision forms
 // (precision "default" and "high", the bf16-data mode; ops/tiers.py) run on
 // the tensor cores (sweep_wgmma.cuh, sweep_wgmma_tf32.cuh).
@@ -188,7 +213,8 @@ __global__ void sum_ll_kernel(const double* __restrict__ part, int count, float*
 
 // ------------------------------------------------------------ W pass
 // T = H.P^T + (1-H).Q^T (k, Mp), redesigned for the H100 (see the note at
-// the head of this file for what it replaces and its bound).
+// the head of this file for what it replaces, its bounds and the designs
+// measured before this one).
 //
 // Grid (ceil(Mw/2), S, R): lane z = blockIdx.z reads W[z], H[z] and writes
 // its own partials.  Block (x, s) of a lane owns the kWRows = 64 data rows
@@ -200,21 +226,24 @@ __global__ void sum_ll_kernel(const double* __restrict__ part, int count, float*
 // sum_parts_kernel then adds the S partials in order s = 0, 1, ...: no float
 // atomics, and a launch on the same inputs gives bitwise the same T.
 //
-// Per 32-column tile, two phases between barriers:
-//   A  the 64 x 32 tile of WH (each thread 2 rows x 4 columns, W and H read
-//      as 16-byte shared loads, contraction over k in ascending order), then
-//      p and q written to Ps/Qs, and 1 - h staged once into Hc;
-//   B  the (k x 64) accumulation over the tile's columns: each thread
-//      owns k rows kg + 16 i (i < TK) and data rows rg + 16 r (r < 4) as
-//      two register sums tp (h p) and tq ((1-h) q),
-//      added at the end, never the one-matmul identity.  Per 4 columns it
-//      loads 8 float4 of p and q and 2 float4 of h and 1 - h per k row:
-//      256 FMAs for 24 shared loads at TK = 8.
-// The next tile's H (and operand) tile arrives by cp.async while phase B
-// runs: H is double-buffered, the operand tile is consumed in phase A.
-// Shared tiles whose rows are read at one column by many threads swizzle
-// their 16-byte chunks (chunk c of row r stored at c ^ (r & 7)), so those
-// reads are free of bank conflicts.
+// Per 32-column tile, two phases:
+//   A  the 64 x 32 tile of WH, every phase-A thread kRA rows x 4 columns,
+//      contraction over k in ascending order; then p and q written to
+//      Ps/Qs, and 1 - h staged once into Hc;
+//   B  the (k x 64) accumulation over the tile's columns, in column order,
+//      by two groups of 128 threads, one product each: group 0 H.P^T,
+//      group 1 (1-H).Q^T.  A thread holds k rows kg + 16 i (i < TK) and
+//      data rows rg + 8 j (j < 8) of its product in registers.  The two
+//      nonnegative sums meet once, at the end, through shared memory
+//      (tp + tq, never the one-matmul identity).
+// Warp-specialised (kSplit) the two phases run in different warps on
+// different tiles (see the kernel); else they take turns between barriers,
+// the next tile's H and operand tiles arriving by cp.async during phase B.
+// Each row's arithmetic, and the order of every sum, is the same in both
+// forms and in every geometry, so a T depends only on the split S.
+// Shared tiles whose rows are read at one column chunk by many threads
+// swizzle their 16-byte chunks (chunk c of row r stored at c ^ (r & 7)), so
+// those reads are free of bank conflicts.
 constexpr int kWRows = 64;  // data rows per block: two word rows
 constexpr int kWCols = 32;  // columns per tile
 
@@ -245,43 +274,77 @@ __device__ __forceinline__ float4 f4(const float v[4]) { return make_float4(v[0]
 template <typename Y>
 constexpr bool dense_operand() { return !std::is_same<Y, int32_t>::value; }
 
+// Named barriers (0 is __syncthreads): the W pass's producer and consumer
+// warps meet on these; bar.arrive and bar.sync order shared-memory accesses
+// like __syncthreads among the threads they count.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+enum WBarrier : int { kWFull = 1, kWEmpty = 4, kWProducers = 6, kWConsumers = 8 };
+
 // Shapes of one W-pass instance: TK k rows per thread (kpad = 16 TK >= k).
 template <int TK, bool SECOND, typename Y, class E>
 struct WPass {
     static constexpr bool kDense = dense_operand<Y>();
     static constexpr bool kReads = E::kWForm != 2;  // chain3_tile reads no operand
     static constexpr bool kHc = E::kWForm == 0;     // (1 - H).Q^T
+    // The second group's product: (1 - H).Q^T, or H.(WH + 1)^T for
+    // chain3_tile; the one-matmul probe has none (its first group adds the
+    // row sums of Q).
+    static constexpr bool kTwo = E::kWForm != 1;
     static constexpr int kpad = 16 * TK;
+    // Warp-specialised at TK = 8: two groups of 4 producer warps (phase A)
+    // on alternate tiles and 8 consumer warps (phase B); else one group of 8
+    // warps does both phases in turn.
+    static constexpr bool kSplit = TK == 8;
+    static constexpr int kProducers = kSplit ? 128 : kThreads;  // phase A threads of a tile
+    static constexpr int kBlock = kSplit ? 512 : kThreads;
+    static constexpr int kRowGroups = kProducers / 8;       // phase A: row groups
+    static constexpr int kRA = kWRows / kRowGroups;          // phase A: rows a thread
     static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
-    // Shared memory in floats: Ws [kpad/4][64][4]; Hs two stages of
-    // [kpad][32]; Hc [kpad][32]; Ps, Qs [64][32]; operand tiles, dense
-    // [64][32] or words [2][32], each.
+    // Stages in flight: of H, the tile a copy fills, the two the producer
+    // groups read and the consumers' tile; of Hc and Ps/Qs, the producers'
+    // two and the consumers' one; of the operand tiles, one per producer
+    // group.
+    static constexpr int kHStages = kSplit ? 4 : 2;
+    static constexpr int kStages = kSplit ? 3 : 1;
+    static constexpr int kYStages = kSplit ? 2 : 1;
+    // Shared memory in floats: Ws [kpad/4][64][4] (after the last tile, the
+    // second group's sums); kHStages of Hs [kpad][32]; kStages each of Hc
+    // [kpad][32] and of Ps and Qs [64][32]; kYStages of the operand tiles,
+    // dense [64][32] or words [2][32], each.
     static constexpr int kWs = kpad * kWRows;
     static constexpr int kHs = kpad * kWCols;
     static constexpr int kPQ = kWRows * kWCols;
     static constexpr int kYs = kDense ? kWRows * kWCols : 2 * kWCols;
     static constexpr size_t kSmem =
-        sizeof(float) * (size_t)(kWs + 2 * kHs + (kHc ? kHs : 0) + 2 * kPQ + kOperands * kYs);
-    // Two blocks per SM (<= 128 registers a thread) while the accumulators
-    // leave room; one at TK = 16.
-    static constexpr int kMinBlocks = TK <= 8 ? 2 : 1;
+        sizeof(float) * (size_t)(kWs + kHStages * kHs + kStages * ((kHc ? kHs : 0) + 2 * kPQ) +
+                                 kYStages * kOperands * kYs);
+    // Two blocks per SM (<= 128 registers a thread) up to TK = 4; one above
+    // (at TK = 8, 512 threads of <= 128 registers).
+    static constexpr int kMinBlocks = TK <= 4 ? 2 : 1;
+    static_assert(128 * TK * 8 <= kWs, "Ws holds the second group's sums");
 };
 
 template <int TK, bool SECOND, typename Y, class E>
-__global__ void __launch_bounds__(kThreads, (WPass<TK, SECOND, Y, E>::kMinBlocks))
+__global__ void __launch_bounds__((WPass<TK, SECOND, Y, E>::kBlock),
+                                  (WPass<TK, SECOND, Y, E>::kMinBlocks))
 wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
              const Y* __restrict__ y, const Y* __restrict__ y2, float* __restrict__ dst, int k,
              int Mp, int Np, int bm, int n_real, float eps) {
     using P = WPass<TK, SECOND, Y, E>;
     constexpr bool kDense = P::kDense;
-    constexpr int kpad = P::kpad;
+    constexpr int kpad = P::kpad, kQ = kWCols / 4, kRG = P::kRowGroups, kRA = P::kRA;
+    constexpr int kPQStage = 2 * P::kPQ, kYStage = P::kOperands * P::kYs;
     extern __shared__ __align__(16) float smem[];
     float* Ws = smem;
-    float* Hbuf = Ws + P::kWs;
-    float* Hc = Hbuf + 2 * P::kHs;
-    float* Ps = Hc + (P::kHc ? P::kHs : 0);
-    float* Qs = Ps + P::kPQ;
-    float* Ys = Qs + P::kPQ;  // y's tile, then y2's
+    float* Hring = Ws + P::kWs;
+    float* Hcs = Hring + P::kHStages * P::kHs;
+    float* PQs = Hcs + (P::kHc ? P::kStages * P::kHs : 0);
+    float* Yring = PQs + P::kStages * kPQStage;  // y's tile, then y2's, a stage
 
     const int tid = threadIdx.x;
     const int bmw = bm / 32, Mw = Mp / 32;
@@ -295,7 +358,7 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
     const int t_end = t_begin + nt / S + (s < nt % S ? 1 : 0);
     const int kw = (k + 7) & ~7;  // k rows phase A visits (rows >= k are zero)
 
-    for (int e = tid; e < kpad * kWRows; e += kThreads) {
+    for (int e = tid; e < kpad * kWRows; e += P::kBlock) {
         const int kk = e / kWRows, lr = e % kWRows;
         const int w = w0 + lr / 32;
         const float v =
@@ -303,59 +366,52 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
         Ws[((kk >> 2) * kWRows + lr) * 4 + (kk & 3)] = mxu_operand<E::kRound>(v);
     }
 
-    // Issue the cp.async copies of tile `tile` into H stage `st` and the
-    // operand tiles; zero beyond k, Np and the word rows.
-    auto stage = [&](int tile, int st) {
+    // A 16-byte shared load is served a quarter-warp (8 lanes) at a time,
+    // and costs about a cycle for every 128 distinct bytes the quarters ask
+    // for together, with no merging across quarters: so each quarter-warp
+    // here reads at most 4 distinct chunks per load, and no two of them in
+    // one bank.  Lane l of a warp takes the pair (l & 3) + 4 ((l >> 3) & 1)
+    // (8 values, 4 in a quarter) and ((l >> 2) & 1) + 2 (l >> 4) (4 values,
+    // 2 in a quarter).
+    // Phase B: group grp (0: H.P^T, 1: the second product), k rows
+    // kg + 16 i, data rows rg + 8 j.  Row rg + 8 j has the swizzle key rg,
+    // k row kg + 16 i the key kg & 7.
+    const int ct = P::kSplit ? tid - 2 * P::kProducers : tid;  // phase B thread
+    const int grp = ct >> 7, lt = ct & 127;
+    const int rg = (lt & 3) + 4 * ((lt >> 3) & 1);
+    const int kg = ((lt >> 2) & 1) + 2 * ((lt >> 4) & 1) + 4 * (lt >> 5);
+
+    // Issue producer thread pt's cp.async copies of tile `tile` into Hs and
+    // the operand tiles Ys (either may be null: not copied); zero beyond k,
+    // Np and the word rows.
+    auto stage = [&](int tile, float* Hs, float* Ys, int pt) {
         const int c0 = tile * kWCols;
-        float* Hs = Hbuf + st * P::kHs;
-        for (int e = tid; e < kpad * 8; e += kThreads) {
-            const int kk = e >> 3, ch = e & 7, col = c0 + 4 * ch;
+        for (int e = pt; Hs != nullptr && e < kpad * kQ; e += P::kProducers) {
+            const int kk = e / kQ, ch = e % kQ, col = c0 + 4 * ch;
             const bool ok = kk < k && col < Np;
-            cp_async16(Hs + kk * kWCols + 4 * (ch ^ (kk & 7)), ok ? H + (size_t)kk * Np + col : H,
-                       ok);
+            cp_async16(Hs + kk * kWCols + 4 * (ch ^ (kk & 7)),
+                       ok ? H + (size_t)kk * Np + col : H, ok);
         }
         if constexpr (P::kReads) {
             constexpr int kRowsY = kDense ? kWRows : 2;
-            for (int e = tid; e < kRowsY * 8 * P::kOperands; e += kThreads) {
-                const int op = e / (kRowsY * 8), rem = e % (kRowsY * 8);
-                const int r = rem >> 3, ch = rem & 7, col = c0 + 4 * ch;
+            for (int e = pt; Ys != nullptr && e < kRowsY * kQ * P::kOperands; e += P::kProducers) {
+                const int op = e / (kRowsY * kQ), rem = e % (kRowsY * kQ);
+                const int r = rem / kQ, ch = rem % kQ, col = c0 + 4 * ch;
                 const int w = kDense ? w0 + r / 32 : w0 + r;
                 const bool ok = w < Mw && col < Np;
                 const Y* src = op ? y2 : y;
                 const size_t row = kDense ? (size_t)word_row_bit(w, r % 32, bm, bmw) : (size_t)w;
-                cp_async16(Ys + op * P::kYs + r * kWCols + 4 * ch, ok ? src + row * Np + col : src,
-                           ok);
+                cp_async16(Ys + op * P::kYs + r * kWCols + 4 * ch,
+                           ok ? src + row * Np + col : src, ok);
             }
         }
-        cp_async_commit();
     };
 
-    // Phase A layout: rows rw and rw + 32, columns 4 cq .. 4 cq + 3.
-    const int cq = tid & 7, rw = tid >> 3;
-    // Phase B layout: k rows kg + 16 i, data rows rg + 16 r; a warp holds 8
-    // row groups and 4 k groups, so each of its p, q and h loads reads at
-    // most 128 distinct bytes (one shared-memory wavefront).
-    const int rg = (tid & 7) | ((tid >> 5 & 1) << 3), kg = (tid >> 3 & 3) | ((tid >> 6) << 2);
-    const int swp = rg & 7, swh = kg & 7;  // the swizzle keys of those rows
-
-    float tp[TK][4], tq[TK][4], qsum[4];
-#pragma unroll
-    for (int i = 0; i < TK; ++i)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) tp[i][r] = tq[i][r] = 0.f;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) qsum[r] = 0.f;
-
-    if (t_begin < t_end) stage(t_begin, 0);
-    for (int t = t_begin; t < t_end; ++t) {
-        const int st = (t - t_begin) & 1;
-        float* Hs = Hbuf + st * P::kHs;
-        cp_async_wait_all();
-        __syncthreads();  // tile t has landed; the previous phase B is done
+    // The tile's 1 - h into Hc; with rounding, h and round(1 - h) rounded in
+    // place first (the caller then waits for every producer before phase A).
+    auto prepare = [&](float* Hs, float* Hc, int pt) {
         if constexpr (E::kRound != Round::kNone && P::kHc) {
-            // The two operands of the tile: h and round(1 - h), each
-            // rounded, before phase A reads h.
-            for (int e = tid; e < P::kHs / 4; e += kThreads) {
+            for (int e = pt; e < P::kHs / 4; e += P::kProducers) {
                 float4 v = reinterpret_cast<const float4*>(Hs)[e];
                 float h[4] = {v.x, v.y, v.z, v.w}, c[4];
 #pragma unroll
@@ -367,15 +423,10 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                 reinterpret_cast<float4*>(Hs)[e] = f4(h);
                 reinterpret_cast<float4*>(Hc)[e] = f4(c);
             }
-            __syncthreads();
         } else if constexpr (E::kRound != Round::kNone) {
-            for (int e = tid; e < P::kHs; e += kThreads) Hs[e] = mxu_operand<E::kRound>(Hs[e]);
-            __syncthreads();
-        }
-
-        // ---- phase A: 1 - h, the WH tile, p and q
-        if constexpr (P::kHc && E::kRound == Round::kNone) {
-            for (int e = tid; e < P::kHs / 4; e += kThreads) {
+            for (int e = pt; e < P::kHs; e += P::kProducers) Hs[e] = mxu_operand<E::kRound>(Hs[e]);
+        } else if constexpr (P::kHc) {
+            for (int e = pt; e < P::kHs / 4; e += P::kProducers) {
                 float4 v = reinterpret_cast<const float4*>(Hs)[e];
                 v.x = 1.f - v.x;
                 v.y = 1.f - v.y;
@@ -384,53 +435,64 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                 reinterpret_cast<float4*>(Hc)[e] = v;
             }
         }
-        float wh[2][4];
+    };
+
+    // ---- phase A: the WH tile, then p and q into Ps/Qs; producer thread pt
+    // takes columns 4 cq .. 4 cq + 3 and rows rw + kRG j (j < kRA)
+    auto produce = [&](int tile, const float* Hs, float* Ps, float* Qs, const float* Ys, int pt) {
+        const int cq = (pt & 3) + 4 * ((pt >> 3) & 1);
+        const int rw = ((pt >> 2) & 1) + 2 * ((pt >> 4) & 1) + 4 * (pt >> 5);
+        float wh[kRA][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < kRA; ++j)
 #pragma unroll
             for (int c = 0; c < 4; ++c) wh[j][c] = 0.f;
-        // Fully unrolled over kpad, so every load is a register plus an
-        // immediate: the 8 swizzled column chunks of this thread, per row key.
+        // Unrolled over 16 k rows a step, so every load is a register plus
+        // an immediate: the 8 swizzled column chunks of this thread, per row
+        // key.
         const float4* Ws4 = reinterpret_cast<const float4*>(Ws);
 #pragma unroll 2
         for (int k8 = 0; k8 < kw; k8 += 8) {
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 const int kq = (k8 >> 2) + half;
-                const float4 wa = Ws4[kq * kWRows + rw];
-                const float4 wb = Ws4[kq * kWRows + rw + 32];
+                float4 wa[kRA];
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int key = 4 * half + j;  // (k8 + key) & 7
+                for (int j = 0; j < kRA; ++j) wa[j] = Ws4[kq * kWRows + rw + kRG * j];
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj) {
+                    const int key = 4 * half + jj;  // (k8 + key) & 7
                     const float4 h =
                         reinterpret_cast<const float4*>(Hs + (k8 + key) * kWCols)[cq ^ key];
 #pragma unroll
-                    for (int c = 0; c < 4; ++c) {
-                        wh[0][c] = fmaf(lane(wa, j), lane(h, c), wh[0][c]);
-                        wh[1][c] = fmaf(lane(wb, j), lane(h, c), wh[1][c]);
-                    }
+                    for (int j = 0; j < kRA; ++j)
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            wh[j][c] = fmaf(lane(wa[j], jj), lane(h, c), wh[j][c]);
                 }
             }
         }
 
-        const int c0 = t * kWCols + 4 * cq;
+        const int c0 = tile * kWCols + 4 * cq;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int lr = rw + 32 * j;
+        for (int j = 0; j < kRA; ++j) {
+            const int lr = rw + kRG * j;
+            const int wr = lr >> 5, b32 = lr & 31;  // word row of the block, bit
             float ym[4] = {0.f, 0.f, 0.f, 0.f}, ym2[4] = {0.f, 0.f, 0.f, 0.f};
             uint32_t word[4] = {0u, 0u, 0u, 0u}, word2[4] = {0u, 0u, 0u, 0u};
             if constexpr (P::kReads && kDense) {
                 const float4 v = reinterpret_cast<const float4*>(Ys + lr * kWCols)[cq];
                 ym[0] = v.x, ym[1] = v.y, ym[2] = v.z, ym[3] = v.w;
                 if constexpr (SECOND) {
-                    const float4 v2 = reinterpret_cast<const float4*>(Ys + P::kYs + lr * kWCols)[cq];
+                    const float4 v2 =
+                        reinterpret_cast<const float4*>(Ys + P::kYs + lr * kWCols)[cq];
                     ym2[0] = v2.x, ym2[1] = v2.y, ym2[2] = v2.z, ym2[3] = v2.w;
                 }
             } else if constexpr (P::kReads) {
-                const int4 v = reinterpret_cast<const int4*>(Ys + j * kWCols)[cq];
+                const int4 v = reinterpret_cast<const int4*>(Ys + wr * kWCols)[cq];
                 word[0] = v.x, word[1] = v.y, word[2] = v.z, word[3] = v.w;
                 if constexpr (SECOND) {
-                    const int4 v2 = reinterpret_cast<const int4*>(Ys + P::kYs + j * kWCols)[cq];
+                    const int4 v2 = reinterpret_cast<const int4*>(Ys + P::kYs + wr * kWCols)[cq];
                     word2[0] = v2.x, word2[1] = v2.y, word2[2] = v2.z, word2[3] = v2.w;
                 }
             }
@@ -453,8 +515,8 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                     pv[c] = col_in ? mxu_operand<E::kRound>(ym[c] * (b * rr)) : 0.f;
                     qv[c] = col_in ? mxu_operand<E::kRound>(cm * (a * rr)) : 0.f;
                 } else {
-                    const bool bit = (word[c] >> rw) & 1u;
-                    const bool bit2 = SECOND ? ((word2[c] >> rw) & 1u) : (!bit && col < n_real);
+                    const bool bit = (word[c] >> b32) & 1u;
+                    const bool bit2 = SECOND ? ((word2[c] >> b32) & 1u) : (!bit && col < n_real);
                     float p, q;
                     if constexpr (E::kSelect) {
                         p = (col_in && bit) ? b * rr : 0.f;
@@ -477,52 +539,171 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
                     }
                 }
             }
-            const int chunk = lr * (kWCols / 4) + (cq ^ (lr & 7));
+            const int chunk = lr * kQ + (cq ^ (lr & 7));
             reinterpret_cast<float4*>(Ps)[chunk] = f4(pv);
             reinterpret_cast<float4*>(Qs)[chunk] = f4(qv);
         }
-        __syncthreads();  // Ps, Qs, Hc written; the operand tile is consumed
-        if (t + 1 < t_end) stage(t + 1, st ^ 1);
+    };
 
-        // ---- phase B: the accumulation over the tile's 32 columns
-        const float4* P4 = reinterpret_cast<const float4*>(Ps);
+    float acc[TK][8], qsum[8];
+#pragma unroll
+    for (int i = 0; i < TK; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) qsum[j] = 0.f;
+
+    // ---- phase B: each group's product over the tile's 32 columns, 4 at a
+    // time.  With `all` (every k row a thread holds is below k) a thread
+    // holds its TK float4 of h (or 1 - h) and streams its 8 of p (or q) one
+    // data row at a time, with no branch, so each load waits behind the FMAs
+    // of the row before.  Else it holds its 8 of p and loads h row by row,
+    // skipping the rows from k on.  Timed on the H100 (wpass_tune's hold_h
+    // and row_by_row): where a thread holds a dead k row, row by row is 5-17%
+    // faster in the warp-specialised block, about even at TK = 4, faster at
+    // TK = 16 with 6 or more dead rows and 4-10% slower with 3 or fewer.
+    auto consume_rows = [&](auto all, const float* Hs, const float* Hc, const float* Ps,
+                            const float* Qs) {
+        if (!P::kTwo && grp == 1) return;
+        const float4* P4 = reinterpret_cast<const float4*>(grp == 0 ? Ps : Qs);
+        const float4* H4 = reinterpret_cast<const float4*>(grp == 1 && P::kHc ? Hc : Hs);
         const float4* Q4 = reinterpret_cast<const float4*>(Qs);
-        const float4* H4 = reinterpret_cast<const float4*>(Hs);
-        const float4* C4 = reinterpret_cast<const float4*>(P::kHc ? Hc : Hs);
-#pragma unroll
-        for (int c4 = 0; c4 < kWCols / 4; ++c4) {
-            float4 p[4], q[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const int chunk = (rg + 16 * r) * (kWCols / 4) + (c4 ^ swp);
-                p[r] = P4[chunk];
-                q[r] = Q4[chunk];
-                if constexpr (E::kWForm == 1)
-                    qsum[r] = (((qsum[r] + q[r].x) + q[r].y) + q[r].z) + q[r].w;
+        auto row_sums = [&](int c4, int j) {
+            const int chunk = (rg + 8 * j) * kQ + (c4 ^ rg);
+            if constexpr (E::kWForm == 1) {
+                const float4 q = Q4[chunk];
+                qsum[j] = (((qsum[j] + q.x) + q.y) + q.z) + q.w;
             }
+            return P4[chunk];
+        };
 #pragma unroll
-            for (int i = 0; i < TK; ++i) {
-                if (i > 0 && 16 * i >= k) break;  // uniform: every row kg + 16 i >= k
-                const int chunk = (kg + 16 * i) * (kWCols / 4) + (c4 ^ swh);
-                const float4 h = H4[chunk];
-                float4 hc = h;
-                if constexpr (P::kHc) hc = C4[chunk];
+        for (int c4 = 0; c4 < kQ; ++c4) {
+            if constexpr (decltype(all)::value) {
+                float4 h[TK];
 #pragma unroll
-                for (int c = 0; c < 4; ++c)
+                for (int i = 0; i < TK; ++i) h[i] = H4[(kg + 16 * i) * kQ + (c4 ^ (kg & 7))];
 #pragma unroll
-                    for (int r = 0; r < 4; ++r) {
-                        tp[i][r] = fmaf(lane(h, c), lane(p[r], c), tp[i][r]);
-                        if constexpr (E::kWForm != 1)
-                            tq[i][r] = fmaf(lane(hc, c), lane(q[r], c), tq[i][r]);
-                    }
+                for (int j = 0; j < 8; ++j) {
+                    const float4 p = row_sums(c4, j);
+#pragma unroll
+                    for (int i = 0; i < TK; ++i)
+#pragma unroll
+                        for (int c = 0; c < 4; ++c)
+                            acc[i][j] = fmaf(lane(h[i], c), lane(p, c), acc[i][j]);
+                }
+            } else {
+                float4 p[8];
+#pragma unroll
+                for (int j = 0; j < 8; ++j) p[j] = row_sums(c4, j);
+#pragma unroll
+                for (int i = 0; i < TK; ++i) {
+                    if (i > 0 && 16 * i >= k) break;  // uniform: every row kg + 16 i >= k
+                    const float4 h = H4[(kg + 16 * i) * kQ + (c4 ^ (kg & 7))];
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+#pragma unroll
+                        for (int j = 0; j < 8; ++j)
+                            acc[i][j] = fmaf(lane(h, c), lane(p[j], c), acc[i][j]);
+                }
             }
+        }
+    };
+    const bool all_rows = 16 * (TK - 1) < k;
+    auto consume = [&](const float* Hs, const float* Hc, const float* Ps, const float* Qs) {
+        if (all_rows) {
+            consume_rows(std::true_type{}, Hs, Hc, Ps, Qs);
+        } else {
+            consume_rows(std::false_type{}, Hs, Hc, Ps, Qs);
+        }
+    };
+
+    if constexpr (P::kSplit) {
+        // Producer group g (threads 128 g .. 128 g + 127) takes the tiles v
+        // (from t_begin) with v % 2 == g and the consumers take every tile in
+        // order: tile v reads H stage v % 4, stage v % 3 of Hc and Ps/Qs and
+        // operand stage g.  Group g starts tile v once the consumers are done
+        // with tile v - 2 (barrier kWEmpty + g), copies tile v + 2's H then,
+        // its operand tiles after phase A of tile v, and reports tile v
+        // filled on kWFull + v % 3.
+        constexpr int kMeet = P::kProducers + 256;  // a producer group and the consumers
+        __syncthreads();  // Ws
+        if (tid < 2 * P::kProducers) {
+            const int g = tid / P::kProducers, pt = tid % P::kProducers;
+            const int n = t_end - t_begin;
+            float* Ys = Yring + g * kYStage;
+            if (g < n) stage(t_begin + g, Hring + g * P::kHs, Ys, pt);
+            cp_async_commit();
+            for (int v = g; v < n; v += 2) {
+                const int t = t_begin + v;
+                if (v >= 2) named_sync(kWEmpty + g, kMeet);
+                cp_async_wait_all();
+                named_sync(kWProducers + g, P::kProducers);  // tile v has landed
+                if (v + 2 < n) stage(t + 2, Hring + (v + 2) % 4 * P::kHs, nullptr, pt);
+                cp_async_commit();
+                float* Hs = Hring + v % 4 * P::kHs;
+                float* Hc = Hcs + v % 3 * P::kHs;
+                float* Ps = PQs + v % 3 * kPQStage;
+                prepare(Hs, Hc, pt);
+                if constexpr (E::kRound != Round::kNone) named_sync(kWProducers + g, P::kProducers);
+                produce(t, Hs, Ps, Ps + P::kPQ, Ys, pt);
+                named_arrive(kWFull + v % 3, kMeet);
+                if (v + 2 < n) {
+                    named_sync(kWProducers + g, P::kProducers);  // the operand tile is consumed
+                    stage(t + 2, nullptr, Ys, pt);
+                }
+                cp_async_commit();
+            }
+            return;
+        }
+        for (int t = t_begin; t < t_end; ++t) {
+            const int v = t - t_begin;
+            named_sync(kWFull + v % 3, kMeet);
+            const float* Ps = PQs + v % 3 * kPQStage;
+            consume(Hring + v % 4 * P::kHs, Hcs + v % 3 * P::kHs, Ps, Ps + P::kPQ);
+            if (v + 2 < t_end - t_begin) named_arrive(kWEmpty + (v & 1), kMeet);
+        }
+    } else {
+        // One group, the phases in turn: H double-buffered, the next tile's
+        // copies in flight during phase B.
+        if (t_begin < t_end) stage(t_begin, Hring, Yring, tid);
+        cp_async_commit();
+        for (int t = t_begin; t < t_end; ++t) {
+            float* Hs = Hring + ((t - t_begin) & 1) * P::kHs;
+            cp_async_wait_all();
+            __syncthreads();  // tile t has landed; the previous phase B is done
+            prepare(Hs, Hcs, tid);
+            if constexpr (E::kRound != Round::kNone) __syncthreads();
+            produce(t, Hs, PQs, PQs + P::kPQ, Yring, tid);
+            __syncthreads();  // Ps, Qs, Hc written; the operand tile is consumed
+            if (t + 1 < t_end) stage(t + 1, Hring + ((t + 1 - t_begin) & 1) * P::kHs, Yring, tid);
+            cp_async_commit();
+            consume(Hs, Hcs, PQs, PQs + P::kPQ);
         }
     }
 
+    // The consumers' epilogue: T = tp + tq, the second group's sums through
+    // Ws (last read by phase A of the last tile, which every consumer has
+    // waited for).
     float* out = dst + (z * gridDim.y + blockIdx.y) * (E::kWForm == 2 ? 2 : 1) * k * Mp;
+    if constexpr (E::kWForm == 0) {
+        if (grp == 1) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int lr = rg + 16 * r;
+            for (int i = 0; i < TK; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) Ws[(i * 8 + j) * 128 + lt] = acc[i][j];
+        }
+        if constexpr (P::kSplit) {
+            named_sync(kWConsumers, 256);
+        } else {
+            __syncthreads();
+        }
+        if (grp == 1) return;
+    } else if constexpr (E::kWForm == 1) {
+        if (grp == 1) return;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int lr = rg + 8 * j;
         const int w = w0 + lr / 32;
         if (w >= Mw) continue;
         const int row = word_row_bit(w, lr % 32, bm, bmw);
@@ -531,12 +712,11 @@ wpass_kernel(const float* __restrict__ W, const float* __restrict__ H,
             const int kk = kg + 16 * i;
             if (kk >= k) continue;
             if constexpr (E::kWForm == 0) {
-                out[(size_t)kk * Mp + row] = tp[i][r] + tq[i][r];
+                out[(size_t)kk * Mp + row] = acc[i][j] + Ws[(i * 8 + j) * 128 + lt];
             } else if constexpr (E::kWForm == 1) {
-                out[(size_t)kk * Mp + row] = tp[i][r] + qsum[r];
+                out[(size_t)kk * Mp + row] = acc[i][j] + qsum[j];
             } else {
-                out[(size_t)kk * Mp + row] = tp[i][r];
-                out[(size_t)(k + kk) * Mp + row] = tq[i][r];
+                out[(size_t)(grp * k + kk) * Mp + row] = acc[i][j];
             }
         }
     }
@@ -580,7 +760,7 @@ struct WpassLauncher {
                                    (int)cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return err;
         const dim3 grid((Mp / 32 + 1) / 2, nsplit, lanes);
-        kernel<<<grid, kThreads, P::kSmem, stream>>>(W, H, y, y2, dst, k, Mp, Np, bm, n_real, eps);
+        kernel<<<grid, P::kBlock, P::kSmem, stream>>>(W, H, y, y2, dst, k, Mp, Np, bm, n_real, eps);
         return cudaGetLastError();
     }
 };

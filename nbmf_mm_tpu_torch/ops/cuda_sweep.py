@@ -49,6 +49,8 @@ pad columns are zero; the log-likelihood is masked exactly to
 
 from __future__ import annotations
 
+import functools
+
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -71,6 +73,8 @@ __all__ = [
     "apply_col_validity",
     "bitplane_rows",
     "blocks_per_sm",
+    "w_blocks_per_sm",
+    "w_warp_specialised",
     "even_chunks",
     "WSplit",
     "column_chunks",
@@ -114,6 +118,9 @@ W_TILE = 32
 # walked one word row (32 data rows) at a time.
 H_COLS = 64
 WAVES = 2  # rounds of resident blocks each pass's grid should fill at least
+# A warp-specialised W-pass block's own cost (filling its pipeline, staging
+# W, the epilogue), in 32-column tiles of its walk.
+W_BLOCK_TILES = 4
 # The operand forms whose passes run on the tensor cores from bf16 copies
 # (csrc/sweep_wgmma.cuh): every product operand bf16, so a product is one
 # wgmma.
@@ -367,10 +374,26 @@ class HSplit(NamedTuple):
 
 
 def blocks_per_sm(k: int) -> int:
-    """Blocks of either pass one SM holds at once: two while ``k <= 128``
-    (the kernels' launch bounds cap them at 128 registers a thread, and a
-    block takes at most 112 KiB of shared memory), one above."""
+    """Blocks of the H pass (and of the tensor-core W passes' planning) one
+    SM holds at once: two while ``k <= 128`` (the kernels' launch bounds cap
+    them at 128 registers a thread, and a block takes at most 112 KiB of
+    shared memory), one above."""
     return 2 if k <= 128 else 1
+
+
+def w_blocks_per_sm(k: int) -> int:
+    """Blocks of the fp32 W pass one SM holds at once (``WPass::kMinBlocks``):
+    two up to ``k = 64`` (256 threads of at most 128 registers, 72 KiB of
+    shared memory a block), one above (at ``64 < k <= 128`` the
+    warp-specialised block, 512 threads of at most 128 registers and up to
+    224 KiB; above, 256 threads and up to 192 KiB)."""
+    return 2 if k <= 64 else 1
+
+
+def w_warp_specialised(k: int) -> bool:
+    """Whether the fp32 W pass runs its warp-specialised block at ``k``
+    (``WPass::kSplit``, ``64 < k <= 128``)."""
+    return 64 < k <= 128
 
 
 def even_chunks(n: int, nsplit: int) -> Tuple[Tuple[int, int], ...]:
@@ -389,7 +412,7 @@ def even_chunks(n: int, nsplit: int) -> Tuple[Tuple[int, int], ...]:
 
 def column_chunks(Np: int, nsplit: int) -> Tuple[Tuple[int, int], ...]:
     """``[begin, end)`` of each of ``nsplit`` column chunks of whole
-    32-column tiles, as the W-pass kernel cuts them: the first
+    32-column tiles, as the W-pass kernels cut them: the first
     ``nt % nsplit`` chunks take one tile more than the rest; the last ends
     at ``Np``."""
     return tuple((b * W_TILE, min(Np, e * W_TILE))
@@ -412,16 +435,36 @@ def _least_waste_split(units: int, other: int, slots: int, waves: int) -> int:
     return max(range(s0, min(units, 2 * s0) + 1), key=lambda s: (used(s), -s))
 
 
-def plan_w_split(Mp: int, Np: int, k: int, n_sm: int, n_out: int = 1) -> WSplit:
-    """Split the W pass's columns so that its ``ceil(Mp/64) x S`` grid fills
-    ``n_sm`` SMs for at least ``WAVES`` rounds of resident blocks, wasting
-    least (:func:`_least_waste_split`).  The partials are added in a fixed
-    order by a second kernel, so every ``S`` gives a bitwise repeatable
-    ``T``.
+@functools.lru_cache(maxsize=None)
+def _pipelined_split(units: int, other: int, slots: int) -> int:
+    """The split of ``units`` tiles into chunks for a grid of ``other x S``
+    warp-specialised blocks on ``slots`` resident blocks: the ``S`` of
+    fewest rounds times tiles a block, each block's own cost counted as
+    ``W_BLOCK_TILES`` more tiles (the smaller ``S`` on ties).  A block that
+    walks few tiles spends its time filling its pipeline, so few rows take
+    fewer, longer chunks than :func:`_least_waste_split` gives."""
+    return min(range(1, units + 1),
+               key=lambda s: (-(-other * s // slots) * (-(-units // s) + W_BLOCK_TILES), s))
+
+
+def plan_w_split(Mp: int, Np: int, k: int, n_sm: int, n_out: int = 1, *,
+                 tensor_cores: bool = False) -> WSplit:
+    """Split the W pass's columns for its ``ceil(Mp/64) x S`` grid on
+    ``n_sm`` SMs, counting the fp32 pass's resident blocks by
+    :func:`w_blocks_per_sm` and the tensor-core forms' by
+    :func:`blocks_per_sm`: for the warp-specialised block
+    (:func:`w_warp_specialised`) by :func:`_pipelined_split`, else for at
+    least ``WAVES`` rounds of resident blocks, wasting least
+    (:func:`_least_waste_split`).  The partials are added in a fixed order
+    by a second kernel, so every ``S`` gives a bitwise repeatable ``T``.
     """
     row_blocks = -(-Mp // W_ROWS)
-    slots = n_sm * blocks_per_sm(k)
-    nsplit = _least_waste_split(-(-Np // W_TILE), row_blocks, slots, WAVES)
+    units = -(-Np // W_TILE)
+    slots = n_sm * (blocks_per_sm(k) if tensor_cores else w_blocks_per_sm(k))
+    if w_warp_specialised(k) and not tensor_cores:
+        nsplit = _pipelined_split(units, row_blocks, slots)
+    else:
+        nsplit = _least_waste_split(units, row_blocks, slots, WAVES)
     blocks = row_blocks * nsplit
     return WSplit(nsplit, column_chunks(Np, nsplit),
                   (nsplit, n_out * k, Mp) if nsplit > 1 else None, blocks, blocks / slots)
@@ -743,13 +786,14 @@ def _launch_wterms(entry, who, W, H_new, y, y2, *, eps, n_real, bm, n_out=1):
     _check_aligned(who, (k * Mp, k * Np), H=H_new, y=y, y2=y2)
     lib = load_library()
     dev = W.device
+    tensor_cores = wgmma_entry(entry) or tf32_entry(entry)
     plan = plan_w_split(Mp, Np, k, torch.cuda.get_device_properties(dev).multi_processor_count,
-                        n_out)
+                        n_out, tensor_cores=tensor_cores)
     T = torch.empty((*lead, n_out * k, Mp), dtype=torch.float32, device=dev)
     part = None if plan.scratch is None else torch.empty((lanes, *plan.scratch),
                                                          dtype=torch.float32, device=dev)
     staged = ()
-    wg = plan_wgmma(k, Mp, Np) if wgmma_entry(entry) or tf32_entry(entry) else None
+    wg = plan_wgmma(k, Mp, Np) if tensor_cores else None
     if wgmma_entry(entry):  # the bf16 copies of W, H and 1 - H
         bf = dict(dtype=torch.bfloat16, device=dev)
         staged = (torch.empty((lanes, wg.kstage, wg.Mps), **bf),

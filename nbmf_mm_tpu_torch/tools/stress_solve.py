@@ -607,7 +607,9 @@ def fp32_smem(which: str, k: int, *, dense: bool, second: bool, terms: bool = Tr
     """Bytes of shared memory a block of the fp32 H (``"h"``) or W (``"w"``)
     pass asks for: ``HPass::kSmem``/``WPass::kSmem`` plus the static
     arrays.  ``n_out=2`` is the W probe that reads no operand and forms no
-    ``1 - h`` (``chain3_tile``)."""
+    ``1 - h`` (``chain3_tile``).  The W pass at TK = 8 (its producer and
+    consumer warps) holds four H stages, three of 1 - h and Ps/Qs, and two
+    of the operand tiles."""
     kpad = 16 * _tk(k)
     nops = 2 if second else 1
     if which == "h":
@@ -615,9 +617,11 @@ def fp32_smem(which: str, k: int, *, dense: bool, second: bool, terms: bool = Tr
         floats = kpad * 64 + 2 * kpad * 32 + (2 * 64 * 32 if terms else 0) + nops * ys
         return 4 * floats + 8 * 8  # ll_warp
     reads = n_out == 1
+    h_stages, stages, y_stages = (4, 3, 2) if _tk(k) == 8 else (2, 1, 1)
     ys = 64 * 32 if dense else 2 * 32
-    floats = (kpad * 64 + 2 * kpad * 32 + (kpad * 32 if reads else 0) + 2 * 64 * 32
-              + (nops * ys if reads else 0))
+    floats = (kpad * 64 + h_stages * kpad * 32
+              + stages * ((kpad * 32 if reads else 0) + 2 * 64 * 32)
+              + y_stages * (nops * ys if reads else 0))
     return 4 * floats
 
 
@@ -694,7 +698,7 @@ def check_geometry(g: Geometry) -> str:
     assert (4 * Np) % 16 == 0 and (4 * g.k * Mp) % 16 == 0 and (4 * g.k * Np) % 16 == 0, g
 
     hs = cs.plan_h_split(Mp, Np, g.k, g.n_sm)
-    ws = cs.plan_w_split(Mp, Np, g.k, g.n_sm, g.n_out)
+    ws = cs.plan_w_split(Mp, Np, g.k, g.n_sm, g.n_out, tensor_cores=g.form != "f32")
     assert 1 <= hs.nsplit <= Mw and _chunks_ok(hs.chunks, Mw), (g, hs)
     assert 1 <= ws.nsplit <= -(-Np // cs.W_TILE) and _chunks_ok(ws.chunks, Np), (g, ws)
     assert all(b % cs.W_TILE == 0 for b, _ in ws.chunks), (g, ws)
@@ -713,18 +717,23 @@ def check_geometry(g: Geometry) -> str:
         # around them (the bit-plane copy, the split sums).
         assert col_blocks <= GRID_X and row_blocks <= GRID_X
         assert -(-g.k * Mp // 256) <= GRID_X and -(-g.k * Np // 256) <= GRID_X
-        resident = cs.blocks_per_sm(g.k)
-        assert resident == (2 if _tk(g.k) <= 8 else 1), g  # the launch bounds' kMinBlocks
+        # the launch bounds' kMinBlocks of each pass
+        assert cs.blocks_per_sm(g.k) == (2 if _tk(g.k) <= 8 else 1), g
+        assert cs.w_blocks_per_sm(g.k) == (2 if _tk(g.k) <= 4 else 1), g
         for which in ("h", "w"):
+            resident = cs.blocks_per_sm(g.k) if which == "h" else cs.w_blocks_per_sm(g.k)
             for dense in ((False, True) if packed_forms else (True,)):
                 for second in (False, True):
                     smem = pass_smem(which, "f32", g.k, dense=dense, second=second,
                                      n_out=g.n_out if which == "w" else 1)
                     assert smem <= SMEM_OPTIN, (g, which, smem)
-                    # Two resident blocks where the plan counts them: their
-                    # shared memory and 128 registers a thread of 256 threads.
+                    # The resident blocks the plan counts: their shared memory
+                    # and registers (128 a thread of 256 threads at two blocks;
+                    # at one, the W pass's 512 threads at TK = 8 take 128).
                     assert resident * (smem + SMEM_RESERVED) <= SMEM_PER_SM, (g, which, smem)
-                    assert resident * 256 * (128 if resident == 2 else 255) <= 2 * REGS_PER_SM
+                    threads = 512 if which == "w" and _tk(g.k) == 8 else 256
+                    regs = 128 if resident == 2 or threads == 512 else 255
+                    assert resident * threads * regs <= REGS_PER_SM, (g, which)
         return "planned"
 
     assert g.n_out == 1, g

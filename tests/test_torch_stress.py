@@ -224,10 +224,15 @@ def test_dyadic_factors_make_wh_and_the_rounded_operands_exact(k):
 def test_fp32_shared_memory_restates_the_kernels():
     # sweep_kernels.cuh: HPass/WPass kSmem at TK = 8 (k = 128), dense, two
     # operands: (128*64 + 2*128*32 + 2*64*32 + 2*32*64) = 24576 floats for the H pass
-    # (plus ll_warp), (128*64 + 3*128*32 + 2*64*32 + 2*64*32) = 28672 for the W pass.
+    # (plus ll_warp); the W pass's producer and consumer warps at TK = 8 hold four
+    # H stages, three of 1 - H and Ps/Qs and two of the operands, (128*64 +
+    # 4*128*32 + 3*(128*32 + 2*64*32) + 2*(2*64*32)) = 57344, one block per SM; at
+    # TK = 4 (k = 64) one group, (64*64 + 3*64*32 + 2*64*32 + 2*64*32) = 18432, two.
     assert st.fp32_smem("h", 128, dense=True, second=True) == 4 * 24576 + 64
-    assert st.fp32_smem("w", 128, dense=True, second=True) == 4 * 28672
+    assert st.fp32_smem("w", 128, dense=True, second=True) == 4 * 57344
+    assert st.fp32_smem("w", 64, dense=True, second=True) == 4 * 18432
     assert cs.blocks_per_sm(128) == 2 and cs.blocks_per_sm(129) == 1
+    assert cs.w_blocks_per_sm(64) == 2 and cs.w_blocks_per_sm(65) == 1
 
 
 @pytest.mark.parametrize("g", [

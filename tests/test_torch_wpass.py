@@ -3,7 +3,9 @@ split decomposition it relies on, held against the JAX package.
 
 The CUDA W pass (``csrc/sweep_kernels.cuh`` ``wpass_kernel``) cuts the
 columns into ``S`` chunks of whole 32-column tiles, writes one partial of
-``T`` per chunk and adds the partials in chunk order.  Here each chunk goes
+``T`` per chunk and adds the partials in chunk order; the fp32 pass plans
+its split by its own occupancy (``w_blocks_per_sm``), the tensor-core forms
+by the H pass's (``blocks_per_sm``).  Here each chunk goes
 through the plain version with its global column offset (``n_real`` less
 the chunk's first column, so the ``col < n_real`` complement stays right),
 the partials are summed in order, and the sum is compared with the JAX
@@ -68,8 +70,15 @@ def test_plan_covers_every_column_once_and_fills_the_card(shape, k):
     assert plan.scratch == (None if plan.nsplit == 1 else (plan.nsplit, k, Mp))
     row_blocks = -(-Mp // cs.W_ROWS)
     assert plan.blocks == row_blocks * plan.nsplit
-    slots = H100_SMS * cs.blocks_per_sm(k)
+    slots = H100_SMS * cs.w_blocks_per_sm(k)
     assert plan.waves == pytest.approx(plan.blocks / slots)
+    if cs.w_warp_specialised(k):
+        # the warp-specialised block: fewest rounds times tiles a block,
+        # a block's own cost counted as W_BLOCK_TILES tiles
+        cost = lambda s: -(-row_blocks * s // slots) * (-(-tiles // s) + cs.W_BLOCK_TILES)
+        assert cost(plan.nsplit) == min(map(cost, range(1, tiles + 1)))
+        assert all(cost(s) > cost(plan.nsplit) for s in range(1, plan.nsplit))  # least on ties
+        return
     # about two waves: at least WAVES unless every chunk is one tile,
     # and no more than twice the least split that reaches them
     if plan.nsplit < tiles:
@@ -79,13 +88,115 @@ def test_plan_covers_every_column_once_and_fills_the_card(shape, k):
 
 
 def test_plan_at_the_headline():
-    """10^4 x 10^4 at K=128 on 132 SMs: 160 row blocks, 8 chunks of 39 or 40
-    tiles, 1280 blocks (five rounds of 264 resident blocks, the last 85%
+    """10^4 x 10^4 at K=128 on 132 SMs: 160 row blocks, 4 chunks of 78 or 79
+    tiles, 640 blocks (five rounds of 132 resident blocks, the last 85%
     full)."""
     plan = cs.plan_w_split(10_240, 10_000, 128, H100_SMS)
+    assert plan.nsplit == 4 and plan.blocks == 640
+    assert plan.scratch == (4, 128, 10_240)
+    assert {e - b for b, e in plan.chunks[:-1]} <= {78 * 32, 79 * 32}
+
+
+@pytest.mark.parametrize("m, k, nsplit", [(64, 128, 105), (64, 65, 105), (8_192, 128, 1),
+                                           (10_000, 96, 4), (100_000, 128, 1)])
+def test_pipelined_split_at_the_serving_chunks_and_the_cells(m, k, nsplit):
+    """The warp-specialised block's split against 10^4 columns: a 64-row
+    serving chunk takes 105 chunks of three tiles (one round, each block's
+    two producer groups both busy), an 8192-row chunk and the flagship one
+    chunk, the headline four (the benchmark's splits, as before)."""
+    _, Mp, Np = cs.plan_packing(m, 10_000)
+    plan = cs.plan_w_split(Mp, Np, k, H100_SMS)
+    assert plan.nsplit == nsplit
+    assert {-(-(e - b) // cs.W_TILE) for b, e in plan.chunks} <= {313 // nsplit, -(-313 // nsplit)}
+
+
+def test_tensor_core_plan_keeps_the_32_column_unit():
+    """The tensor-core W passes plan as before: 32-column units at
+    ``blocks_per_sm``, 8 chunks and 1280 blocks at the headline."""
+    plan = cs.plan_w_split(10_240, 10_000, 128, H100_SMS, tensor_cores=True)
     assert plan.nsplit == 8 and plan.blocks == 1280
     assert plan.scratch == (8, 128, 10_240)
-    assert {e - b for b, e in plan.chunks[:-1]} <= {39 * 32, 40 * 32}
+    assert plan.chunks == cs.column_chunks(10_000, 8)
+    assert plan.waves == pytest.approx(1280 / (H100_SMS * cs.blocks_per_sm(128)))
+
+
+def _kernel_tiles(Np, nsplit, s, tile=32):
+    """Columns ``[begin, end)`` block ``(x, s)`` of the kernel walks: its
+    ``t_begin``/``t_end`` in tiles of ``tile`` columns, cut at ``Np``."""
+    nt = -(-Np // tile)
+    t_begin = s * (nt // nsplit) + min(s, nt % nsplit)
+    t_end = t_begin + nt // nsplit + (1 if s < nt % nsplit else 0)
+    return t_begin * tile, min(Np, t_end * tile)
+
+
+def _word_row_bit(w, b, bm):
+    bmw = bm // 32
+    j = w // bmw
+    return j * bm + (w - j * bmw) + b * bmw
+
+
+@pytest.mark.parametrize("k", RANKS)
+@pytest.mark.parametrize("shape", SHAPES.values(), ids=SHAPES.keys())
+def test_plan_covers_every_row_and_column_once_in_chunk_order(shape, k):
+    """The kernel's grid over the plan: block (x, s) walks the columns of
+    chunk s and the 64 data rows of word rows 2x and 2x + 1; the chunks,
+    taken in order, cover 0..Np once, and the row blocks cover 0..Mp once."""
+    bm, Mp, Np = cs.plan_packing(*shape)
+    plan = cs.plan_w_split(Mp, Np, k, H100_SMS)
+    assert plan.nsplit <= -(-Np // cs.W_TILE)  # the launcher's bound
+    cols = []
+    for s, chunk in enumerate(plan.chunks):
+        assert _kernel_tiles(Np, plan.nsplit, s) == chunk
+        cols += range(*chunk)
+    assert cols == list(range(Np))
+    Mw = Mp // 32
+    rows = [_word_row_bit(2 * x + lr // 32, lr % 32, bm) for x in range((Mw + 1) // 2)
+            for lr in range(cs.W_ROWS) if 2 * x + lr // 32 < Mw]
+    assert sorted(rows) == list(range(Mp))
+    assert plan.blocks == (Mw + 1) // 2 * plan.nsplit
+
+
+# The benchmark's two shapes (m, n, k, lanes): the flagship fit and the
+# headline's 16 restarts, at the solver's padding.
+CELL_SHAPES = {"flagship": (100_000, 10_000, 128, 1), "headline_restarts16": (10_000, 10_000, 128, 16)}
+
+
+@pytest.mark.parametrize("m, n, k, lanes", CELL_SHAPES.values(), ids=CELL_SHAPES.keys())
+def test_w_split_scratch_never_exceeds_the_h_split_scratch(m, n, k, lanes):
+    """The W pass's partials ((S, k, Mp) a lane) never outgrow the H pass's
+    Num/Den partials (two of (S, k, Np) a lane), which set the fit's peak."""
+    _, Mp, Np = cs.plan_packing(m, n)
+    size = lambda scratch, copies: 0 if scratch is None else copies * lanes * int(np.prod(scratch))
+    w = cs.plan_w_split(Mp, Np, k, H100_SMS)
+    h = cs.plan_h_split(Mp, Np, k, H100_SMS)
+    assert size(w.scratch, 1) <= size(h.scratch, 2)
+    # and no more than the parent's 32-column plan at two blocks per SM
+    assert size(w.scratch, 1) <= size(cs.plan_w_split(Mp, Np, k, H100_SMS,
+                                                      tensor_cores=True).scratch, 1)
+
+
+def test_plan_h_split_is_unchanged_at_the_cells_shapes():
+    """The H pass keeps its own occupancy figure: its split at the cells'
+    shapes is the one it had before the W pass took its own
+    (``w_blocks_per_sm``)."""
+    flagship = cs.plan_h_split(100_096, 10_000, 128, H100_SMS)
+    assert flagship == cs.HSplit(5, ((0, 626), (626, 1252), (1252, 1878), (1878, 2503),
+                                     (2503, 3128)), (5, 128, 10_000), 785, 785 / 264)
+    headline = cs.plan_h_split(10_240, 10_000, 128, H100_SMS)
+    assert headline == cs.HSplit(5, ((0, 64), (64, 128), (128, 192), (192, 256), (256, 320)),
+                                 (5, 128, 10_000), 785, 785 / 264)
+    assert cs.blocks_per_sm(128) == 2 and cs.blocks_per_sm(129) == 1
+
+
+@pytest.mark.parametrize("k", [1, 16, 17, 32, 33, 64, 65, 128, 129, 256])
+def test_w_geometry_restates_the_kernel(k):
+    """``w_blocks_per_sm`` restates ``WPass::kMinBlocks`` by the k rows a
+    thread holds (TK = 1, 2, 4, 8, 16); the split's chunks never outnumber
+    the 32-column tiles."""
+    tk = 1 if k <= 16 else 2 if k <= 32 else 4 if k <= 64 else 8 if k <= 128 else 16
+    assert cs.w_blocks_per_sm(k) == (2 if tk <= 4 else 1)
+    plan = cs.plan_w_split(64, 100, k, H100_SMS)
+    assert plan.nsplit <= -(-100 // cs.W_TILE)
 
 
 def test_plan_scratch_of_two_output_forms():
@@ -314,7 +425,8 @@ def test_wpass_tune_variants_edit_the_current_source():
 
     header = (_build.CSRC / "sweep_kernels.cuh").read_text()
     texts = variants(header)
-    assert set(texts) == {"production", "one_block", "phase_a_x2", "phase_b_x2"}
+    assert set(texts) == {"production", "one_group", "phase_a_x0", "phase_b_x0", "hold_h",
+                          "row_by_row"}
     assert texts["production"] == header
     for name, text in texts.items():
         assert text.count("{") == text.count("}"), name
