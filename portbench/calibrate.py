@@ -66,7 +66,7 @@ def main(argv=None) -> int:
             runs.append(("control", CONTROL, nullcontext))
         if seed in args.fault_seeds:
             runs += [(name, tier, lambda name=name: faults.planted(name))
-                     for name in faults.applicable(cell.lanes)]
+                     for name in faults.applicable(cell.lanes, "mask_mode" in cell.traffic)]
         fits = {}
         for label, precision, planted in runs:
             t = time.perf_counter()

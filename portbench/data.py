@@ -14,6 +14,12 @@ entries:
 Binary data is drawn ``Y = (u < P)`` with ``u`` from a generator of its own
 for every block of :data:`RNG_ROWS` rows, as ``GroundTruth.rows`` draws it,
 so any chunking gives the same matrix.  Soft labels are ``P`` itself.
+
+A training mask (a traffic's ``observed`` share) is drawn the same way,
+``M = (v < observed)`` per entry, with ``v`` from a stream of its own: its
+blocks' generator seeds lie :data:`MASK_STREAM` past the data's, so no seed
+of one stream is a seed of the other while a matrix has fewer than
+``MASK_STREAM`` blocks of rows.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 RNG_ROWS = 256
 CHUNK_ENTRIES = 1 << 25  # entries of one transient row chunk
+MASK_STREAM = 500_000  # the mask's block seeds, past the data's (seed * 1_000_003 + 1 + block)
 
 
 class Recipe:
@@ -53,15 +60,28 @@ class Recipe:
             return torch.full((b - a, self.n), self.density, device=self.device)
         return torch.clamp(self.W[a:b] @ self.H, self.clip, 1.0 - self.clip)
 
-    def binary_rows(self, a: int, b: int) -> torch.Tensor:
-        """The binary draw of rows ``[a, b)``, float32 0/1 on the device."""
+    def block_seed(self, block: int, stream: int = 0) -> int:
+        """The generator seed of a block of :data:`RNG_ROWS` rows: the data's
+        (``stream`` 0) or the mask's (:data:`MASK_STREAM`)."""
+        return self.seed * 1_000_003 + 1 + stream + block
+
+    def uniform_rows(self, a: int, b: int, stream: int = 0) -> torch.Tensor:
+        """U(0, 1) draws of rows ``[a, b)`` from the blocks of ``stream``."""
         first, last = a // RNG_ROWS, -(-b // RNG_ROWS)
         u = []
         for block in range(first, last):
-            self.gen.manual_seed(self.seed * 1_000_003 + 1 + block)
+            self.gen.manual_seed(self.block_seed(block, stream))
             u.append(torch.rand((RNG_ROWS, self.n), generator=self.gen, device=self.device))
-        u = torch.cat(u)[a - first * RNG_ROWS: b - first * RNG_ROWS]
-        return (u < self.probabilities(a, b)).to(torch.float32)
+        return torch.cat(u)[a - first * RNG_ROWS: b - first * RNG_ROWS]
+
+    def binary_rows(self, a: int, b: int) -> torch.Tensor:
+        """The binary draw of rows ``[a, b)``, float32 0/1 on the device."""
+        return (self.uniform_rows(a, b) < self.probabilities(a, b)).to(torch.float32)
+
+    def mask_rows(self, a: int, b: int, observed: float) -> torch.Tensor:
+        """The training mask of rows ``[a, b)``: each entry observed (1) with
+        probability ``observed``, float32 0/1 on the device."""
+        return (self.uniform_rows(a, b, MASK_STREAM) < observed).to(torch.float32)
 
     def chunk_rows(self) -> int:
         return max(RNG_ROWS, CHUNK_ENTRIES // self.n // RNG_ROWS * RNG_ROWS)
@@ -79,6 +99,10 @@ class Recipe:
     def binary(self) -> torch.Tensor:
         """The binary matrix as uint8 (a byte an entry)."""
         return self.fill(self.binary_rows, torch.uint8)
+
+    def mask(self, observed: float) -> torch.Tensor:
+        """The training mask as uint8 (a byte an entry)."""
+        return self.fill(lambda a, b: self.mask_rows(a, b, observed), torch.uint8)
 
     def soft(self) -> torch.Tensor:
         """The soft labels ``P`` as float32."""

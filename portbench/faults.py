@@ -6,13 +6,17 @@ function that the solver looks up at call time, and what stands in for it.
 Faults a cell can have: a step that returns its state unchanged; half of
 the rows left out of the H pass's sums, the rest scaled up to stand for
 them; an answer altered where it is produced; with restarts, half of the
-lanes left out, and the worst lane returned.  Every cell takes one chip, so
-no exchange between chips can be left out.
+lanes left out, and the worst lane returned; with a training mask, the
+second word plane withheld from the H pass (which then reads parity's
+``1 - Ym``) or from the W pass (which then takes unobserved entries for
+zeros).  Every cell takes one chip, so no exchange between chips can be left
+out.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
+from functools import partial
 
 import torch
 
@@ -79,20 +83,39 @@ def wrong_lane():
     return [(restarts, "vmapped_solve", worst)]
 
 
+def _mask_dropped(plane: int):
+    """The fused loop handed ``None`` for its operand ``plane`` (1: the H
+    pass's second plane, 2: the W pass's)."""
+    from nbmf_mm_tpu_torch.solver import driver
+
+    core = driver._solve_core_fused
+
+    def dropped(*args, **kw):
+        args = list(args)
+        args[plane] = None
+        return core(*args, **kw)
+
+    return [(driver, "_solve_core_fused", dropped)]
+
+
 FAULTS = {"unchanged_w_step": unchanged_w_step, "half_rows": half_rows,
           "altered_answer": altered_answer}
 RESTART_FAULTS = {"half_lanes": half_lanes, "wrong_lane": wrong_lane}
+MASK_FAULTS = {"mask_dropped_h": partial(_mask_dropped, 1),
+               "mask_dropped_w": partial(_mask_dropped, 2)}
 
 
-def applicable(lanes: int) -> dict:
-    """The faults a cell with ``lanes`` restart lanes can have, by name."""
-    return {**FAULTS, **(RESTART_FAULTS if lanes > 1 else {})}
+def applicable(lanes: int, masked: bool = False) -> dict:
+    """The faults a cell with ``lanes`` restart lanes, and a training mask
+    where ``masked``, can have, by name."""
+    return {**FAULTS, **(RESTART_FAULTS if lanes > 1 else {}),
+            **(MASK_FAULTS if masked else {})}
 
 
 @contextmanager
 def planted(name: str):
     """The fault ``name`` in place for the ``with`` block."""
-    patches = {**FAULTS, **RESTART_FAULTS}[name]()
+    patches = {**FAULTS, **RESTART_FAULTS, **MASK_FAULTS}[name]()
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
     try:
         for owner, attr, new in patches:

@@ -2,10 +2,12 @@
 
 Set-up makes the cell's data on the device from the seed, hands it to the
 program in the traffic's input form (packed once by the program's
-``pack_matrix_chunked``, or a dense float32 tensor of soft labels) and warms
-up with one short fit of the same shapes.  The window then runs fits back to
-back, one caller, each ``solve(..., max_iter=sweeps, tol=0,
-device_results=True, random_state=seed + i)``: fixed work from fresh inits.
+``pack_matrix_chunked``; a dense float32 tensor of soft labels; or, for
+matrix completion, the binary matrix and a training mask as uint8, both
+handed to every fit, which stages them itself) and warms up with one short
+fit of the same shapes.  The window then runs fits back to back, one
+caller, each ``solve(..., max_iter=sweeps, tol=0, device_results=True,
+random_state=seed + i)``: fixed work from fresh inits.
 The fit that is running when the window's seconds are up is finished and
 counted, and the window ends in ``torch.cuda.synchronize()``.
 
@@ -60,16 +62,23 @@ def program_input(cell: Cell, recipe: data.Recipe, device: torch.device):
                                    chunk_rows=recipe.chunk_rows(), validate=False, device=device)
     if form == "soft_dense":
         return recipe.soft()
+    if form == "dense_masked":
+        return recipe.binary(), recipe.mask(cell.traffic["observed"])
     raise ValueError(f"unknown traffic input {form!r}")
 
 
 def fit(cell: Cell, X, *, random_state: int, sweeps: int, precision: str, device):
-    """One fit of the timed path."""
+    """One fit of the timed path; a traffic that names a ``mask_mode`` hands
+    ``X = (Y, mask)`` over as the user of matrix completion does."""
     c, t = cell.config, cell.traffic
+    masked = {}
+    if "mask_mode" in t:
+        X, mask = X
+        masked = {"mask": mask, "mask_mode": t["mask_mode"]}
     return solve(X, c["k"], max_iter=sweeps, tol=t["tol"], alpha=c["alpha"], beta=c["beta"],
                  eps=c["eps"], random_state=random_state, n_init=t["n_init"],
                  precision=None if precision == "highest" else precision, backend="fused",
-                 device_results=True, device=device)
+                 device_results=True, device=device, **masked)
 
 
 def kept(result, random_state: int) -> dict:
@@ -81,10 +90,14 @@ def kept(result, random_state: int) -> dict:
 
 def reference_rows(cell: Cell, recipe: data.Recipe):
     """The data as the reference reads it, made anew from the seed: float32
-    rows of a uint8 binary matrix or of the soft labels."""
+    rows of a uint8 binary matrix or of the soft labels, or ``(y, mask)``
+    pairs of float32 rows where the traffic has a training mask."""
     if cell.traffic["input"] == "packed":
         Y = recipe.binary()
         return lambda a, b: Y[a:b].to(torch.float32)
+    if cell.traffic["input"] == "dense_masked":
+        Y, M = recipe.binary(), recipe.mask(cell.traffic["observed"])
+        return lambda a, b: (Y[a:b].to(torch.float32), M[a:b].to(torch.float32))
     Y = recipe.soft()
     return lambda a, b: Y[a:b]
 
@@ -97,7 +110,9 @@ def reference_fit(cell: Cell, seed: int, random_state: int, device: torch.device
         rows = reference_rows(cell, data.Recipe(c, seed, device))
         W0, H0 = reference.initial_factors(random_state, cell.lanes, c["m"], c["n"], c["k"])
         return reference.Fit(rows, c["m"], c["n"], alpha=c["alpha"], beta=c["beta"],
-                             eps=c["eps"], device=device).run(W0, H0, cell.traffic["sweeps"])
+                             eps=c["eps"], device=device,
+                             mask_mode=cell.traffic.get("mask_mode")).run(
+                                 W0, H0, cell.traffic["sweeps"])
 
 
 def check(cell: Cell, seed: int, sample: dict, device: torch.device):

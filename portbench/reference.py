@@ -11,6 +11,18 @@ then every ``H0 (n_init, k, n)`` draw, each U(0.1, 0.9) in float32).
 Its losses follow the program's convention: entry ``t`` is the objective
 after sweep ``t``, ``-(ll + (alpha-1) sum log(H+eps) + (beta-1) sum
 log(1-H+eps)) / (m n)`` with ``ll = sum(y log(WH+eps) + (1-y) log(1-WH+eps))``.
+
+With a training mask (``mask_mode`` ``"corrected"`` or ``"parity"``) the
+rows are ``(y, mask)`` pairs and the masked MM of the paper runs on
+``Ym = y mask`` and ``Ym2 = (1 - y) mask``, formed a block at a time: the H
+update's denominator and ``ll`` read ``Yc``, which is ``Ym2`` in corrected
+mode and ``1 - Ym`` in parity mode (the paper's reference code, which counts
+unobserved entries as zeros there); the W step reads ``Ym2`` in both modes;
+the objective is divided by ``n_obs``, the mask's count of observed entries,
+counted exactly.  The W step divides by ``n`` before each row of ``W`` is
+put back on the simplex, as the program does; the normalisation makes the
+divisor immaterial.  Without a mask every operation runs in the order it
+always has.
 """
 
 from __future__ import annotations
@@ -38,30 +50,55 @@ def _upper(eps: float) -> float:
 
 class Fit:
     """``sweeps`` MM sweeps of ``lanes`` inits over the data ``rows(a, b)``
-    (float32 rows of an ``(m, n)`` matrix on ``device``)."""
+    (float32 rows of an ``(m, n)`` matrix on ``device``, or, with a
+    ``mask_mode``, ``(y, mask)`` pairs of such rows)."""
 
     def __init__(self, rows, m: int, n: int, *, alpha: float, beta: float, eps: float,
-                 device):
-        self.rows, self.m, self.n = rows, m, n
+                 device, mask_mode=None):
+        if mask_mode not in (None, "corrected", "parity"):
+            raise ValueError(f"unknown mask_mode {mask_mode!r}")
+        self.rows, self.m, self.n, self.mask_mode = rows, m, n, mask_mode
         self.am1, self.bm1, self.eps = alpha - 1.0, beta - 1.0, eps
         self.device = torch.device(device)
 
-    def _blocks(self, lanes: int):
+    def _blocks(self, lanes: int, step_pass: str):
+        """``(a, b, pos, neg)`` of each block of rows: the planes that the
+        ratios' numerators take, ``Ym`` and the second plane of the H pass
+        (``step_pass`` ``"h"``, its ``Yc``) or of the W step (``"w"``,
+        ``Ym2``); without a mask ``y`` and ``1 - y``."""
         step = max(1, BLOCK_ENTRIES // (lanes * self.n))
         for a in range(0, self.m, step):
             b = min(a + step, self.m)
-            yield a, b, self.rows(a, b)
+            if self.mask_mode is None:
+                y = self.rows(a, b)
+                yield a, b, y, 1.0 - y
+                continue
+            y, mask = self.rows(a, b)
+            Ym = y * mask
+            if step_pass == "h" and self.mask_mode == "parity":
+                yield a, b, Ym, 1.0 - Ym
+            else:
+                yield a, b, Ym, (1.0 - y) * mask
 
-    def _ratios(self, Wb, H, y, with_ll: bool):
-        """``y / (WH + eps)`` and ``(1 - y) / (max(1 - WH, 0) + eps)`` of a
+    def n_obs(self):
+        """The entries the objective is divided by: ``m n``, or the mask's
+        count of observed entries."""
+        if self.mask_mode is None:
+            return self.m * self.n
+        step = max(1, BLOCK_ENTRIES // self.n)
+        return sum(int(torch.count_nonzero(self.rows(a, min(a + step, self.m))[1]))
+                   for a in range(0, self.m, step))
+
+    def _ratios(self, Wb, H, pos, neg, with_ll: bool):
+        """``pos / (WH + eps)`` and ``neg / (max(1 - WH, 0) + eps)`` of a
         block, and, ``with_ll``, the block's log-likelihood per lane."""
         WH = Wb.transpose(1, 2) @ H
         lo, hi = WH + self.eps, torch.clamp_min(1.0 - WH, 0.0) + self.eps
         ll = None
         if with_ll:
-            ll = (y * torch.log(lo) + (1.0 - y) * torch.log(hi)).sum(dim=(1, 2),
-                                                                  dtype=torch.float64)
-        return y / lo, (1.0 - y) / hi, ll
+            ll = (pos * torch.log(lo) + neg * torch.log(hi)).sum(dim=(1, 2),
+                                                               dtype=torch.float64)
+        return pos / lo, neg / hi, ll
 
     def h_terms(self, W, H):
         """``(W P, W Q, ll)`` over all rows: the H update's sums."""
@@ -69,9 +106,9 @@ class Fit:
         num = torch.zeros((lanes, k, self.n), dtype=torch.float32, device=self.device)
         den, ll = torch.zeros_like(num), torch.zeros(lanes, dtype=torch.float64,
                                                      device=self.device)
-        for a, b, y in self._blocks(lanes):
+        for a, b, pos, neg in self._blocks(lanes, "h"):
             Wb = W[:, :, a:b]
-            P, Q, block_ll = self._ratios(Wb, H, y, True)
+            P, Q, block_ll = self._ratios(Wb, H, pos, neg, True)
             num += Wb @ P
             den += Wb @ Q
             ll += block_ll
@@ -82,20 +119,20 @@ class Fit:
         ``W (H P^T + (1 - H) Q^T) / n``, each column put back on the
         simplex."""
         out = torch.empty_like(W)
-        for a, b, y in self._blocks(W.shape[0]):
+        for a, b, pos, neg in self._blocks(W.shape[0], "w"):
             Wb = W[:, :, a:b]
-            P, Q, _ = self._ratios(Wb, H, y, False)
+            P, Q, _ = self._ratios(Wb, H, pos, neg, False)
             T = H @ P.transpose(1, 2) + (1.0 - H) @ Q.transpose(1, 2)
             Wn = Wb * T / self.n
             sums = Wn.sum(dim=1, keepdim=True)
             out[:, :, a:b] = Wn / torch.where(sums > 0, sums, 1.0)
         return out
 
-    def objective(self, ll, H):
+    def objective(self, ll, H, n_obs):
         Hd = H.double()
         prior = (self.am1 * torch.log(Hd + self.eps).sum(dim=(1, 2))
                  + self.bm1 * torch.log(1.0 - Hd + self.eps).sum(dim=(1, 2)))
-        return -(ll + prior) / (self.m * self.n)
+        return -(ll + prior) / n_obs
 
     def run(self, W0, H0, sweeps: int):
         """``(W (lanes, m, k), H (lanes, k, n), losses (lanes, sweeps))`` from
@@ -105,12 +142,12 @@ class Fit:
         W = W0.to(self.device).transpose(1, 2)
         W = (W / W.sum(dim=1, keepdim=True)).contiguous()  # (lanes, k, m), unit columns
         H = H0.to(self.device).contiguous()
-        upper = _upper(self.eps)
+        upper, n_obs = _upper(self.eps), self.n_obs()
         losses = torch.zeros((W.shape[0], sweeps), dtype=torch.float64, device=self.device)
         for t in range(sweeps + 1):
             num, den, ll = self.h_terms(W, H)
             if t >= 1:
-                losses[:, t - 1] = self.objective(ll, H)
+                losses[:, t - 1] = self.objective(ll, H, n_obs)
             if t == sweeps:
                 break
             a = H * num + self.am1

@@ -17,7 +17,9 @@ PEAK = {  # operations/s by the solver's ``precision`` tier
     "high": 495e12,  # TF32 on the tensor cores
     "default": 989e12,  # bf16 on the tensor cores
 }
-DATA_BYTES = {"packed": 1 / 8, "soft_dense": 4}  # bytes an entry, by traffic input
+# Bytes an entry, by traffic input: one word plane; dense float32; two word
+# planes (``Ym`` and ``Ym2``), which each pass streams in corrected mode.
+DATA_BYTES = {"packed": 1 / 8, "soft_dense": 4, "dense_masked": 2 / 8}
 
 
 def bound(flops: float, nbytes: float, peak: float):

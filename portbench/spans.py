@@ -8,9 +8,9 @@ device falls inside known spans.  :func:`table` reduces the spans inside the har
 window to a count, the host time they cover and the device-idle time inside
 them; :func:`readings` turns the table into six per-layer numbers.
 
-The record that ``tracing.reduce`` hands the metrics does not hold the
-table, so no entry of ``BENCHMARK.json`` reads these numbers yet.  This
-module's command prints them beside a traced run:
+The record that ``tracing.reduce`` hands the metrics holds the table under
+``spans``; ``metrics/staging_ms.fit.py`` reads the first of the readings.
+This module's command prints all six beside a traced run:
 
     python3 -m portbench.spans --workload <cell> --seed <n> --seconds <s>
 
@@ -116,15 +116,13 @@ def readings(spans: dict, window_s: float) -> dict:
 @contextlib.contextmanager
 def keeping_spans():
     """Inside, every trace that the harness reduces also leaves
-    ``{"window_s", "spans"}`` in the yielded list.  The harness drops a
-    trace's events once it has reduced them, so the table is made on the
-    way, from the same events."""
+    ``{"window_s", "spans"}`` of its record in the yielded list."""
     kept = []
     reduce = tracing.reduce
 
     def reduce_and_keep(trace_events):
         rec = reduce(trace_events)
-        kept.append({"window_s": rec.get("window_s"), "spans": table(trace_events)})
+        kept.append({"window_s": rec.get("window_s"), "spans": rec.get("spans", {})})
         return rec
 
     tracing.reduce = reduce_and_keep

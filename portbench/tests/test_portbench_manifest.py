@@ -93,7 +93,8 @@ def test_metrics(bench):
         assert any(cell in m.get("workloads", cells) for m in bench["per_layer"])
 
 
-@pytest.mark.parametrize("workload", ["flagship_fit", "headline_restarts16", "flagship_soft"])
+@pytest.mark.parametrize("workload", ["flagship_fit", "headline_restarts16", "flagship_soft",
+                                      "flagship_masked"])
 def test_cell_pieces_found_by_name(workload):
     cell = manifest.load_cell(workload)
     assert cell.chips == 1 and cell.traffic["tol"] == 0.0
@@ -106,3 +107,20 @@ def test_cell_pieces_found_by_name(workload):
         assert limit / lower > upper / limit
     for fault in readings["faults_least"].values():  # each fault read on the card fails a number
         assert any(fault[name] > limit for name, limit in cell.limits.items())
+
+
+def test_masked_traffic_is_the_issued_mix():
+    cell = manifest.load_cell("flagship_masked")
+    assert cell.traffic == {"name": "fits_masked_corrected_fp32", "loop": "closed",
+                            "input": "dense_masked", "observed": 0.7, "mask_mode": "corrected",
+                            "n_init": 1, "sweeps": 100, "tol": 0.0, "precision": "highest",
+                            "warmup_sweeps": 10}
+    assert cell.config == manifest.load_cell("flagship_fit").config
+    for name in ("flagship_fit", "headline_restarts16", "flagship_soft"):
+        assert "mask_mode" not in manifest.load_cell(name).traffic
+
+
+def test_every_per_layer_metric_reads_every_cell(bench):
+    cells = [w["name"] for w in bench["workloads"]]
+    for m in bench["per_layer"]:
+        assert m["workloads"] == cells, m["name"]

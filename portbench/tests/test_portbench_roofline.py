@@ -21,11 +21,15 @@ def test_bound_takes_the_larger_side():
 def test_flagship_sweep_is_operation_bound():
     m, n, k = 100_000, 10_000, 128
     assert roofline.pass_flops(m, n, k, 1) == 6 * m * n * k
-    for data in ("packed", "soft_dense"):
+    for data in ("packed", "soft_dense", "dense_masked"):
         t = roofline.sweep_seconds(m, n, k, 1, "highest", data)
         assert t == pytest.approx(2 * 6 * m * n * k / 67e12)  # 22.93 ms
     lanes = roofline.sweep_seconds(10_000, 10_000, 128, 16, "highest", "packed")
     assert lanes == pytest.approx(16 * 2 * 6 * 1e8 * 128 / 67e12)
+
+
+def test_data_bytes_by_input():
+    assert roofline.DATA_BYTES == {"packed": 1 / 8, "soft_dense": 4, "dense_masked": 2 / 8}
 
 
 def test_small_rank_dense_sweep_is_byte_bound():
@@ -37,7 +41,8 @@ def test_small_rank_dense_sweep_is_byte_bound():
 
 RECORD = dict(window_s=10.0, busy_s=9.8, kernel_busy_s=9.7, launches=4600, syncs=102,
               fit_start_ms=[40.0, 60.0], fits=1, sweeps=100, m=100_000, n=10_000, k=128,
-              lanes=1, precision="highest", input="packed")
+              lanes=1, precision="highest", input="packed",
+              spans={"nbmf_mm.stage": {"count": 2, "host_s": 0.3, "idle_s": 0.2}})
 
 
 def test_readers_on_a_record():
@@ -49,11 +54,14 @@ def test_readers_on_a_record():
     assert read("launches_per_sweep.fit") == 46.0
     assert read("host_syncs_per_sweep.fit") == 1.02
     assert read("fit_start_ms.fit") == 50.0
+    assert read("staging_ms.fit") == pytest.approx(150.0)
+    assert read("staging_ms.fit", dict(RECORD, spans={"nbmf_mm.loop": {}})) is None
 
 
 @pytest.mark.parametrize("name", ["kernel_roofline_pct.fit", "sweep_mfu_pct.fit",
                                   "device_idle_pct.fit", "launches_per_sweep.fit",
-                                  "host_syncs_per_sweep.fit", "fit_start_ms.fit"])
+                                  "host_syncs_per_sweep.fit", "fit_start_ms.fit",
+                                  "staging_ms.fit"])
 def test_readers_return_nothing_without_a_trace(name):
     assert manifest.reader(name)({}) is None
 

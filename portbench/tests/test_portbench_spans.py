@@ -95,7 +95,7 @@ def test_no_program_spans_no_readings():
     assert spans.readings({}, None) == dict.fromkeys(NAMES)
 
 
-@pytest.mark.parametrize("workload", ["flagship_fit", "headline_restarts16"])
+@pytest.mark.parametrize("workload", ["flagship_fit", "headline_restarts16", "flagship_masked"])
 def test_traced_run_has_the_spans_of_every_fit(workload):
     cell, reduce = tiny_cell(workload), tracing.reduce
     with spans.keeping_spans() as kept:
@@ -113,3 +113,8 @@ def test_traced_run_has_the_spans_of_every_fit(workload):
     assert read["stop_reads_per_sweep.fit"] == pytest.approx((sweeps - 2) / sweeps)
     assert read["init_draw_ms.fit"] <= read["staging_ms.fit"]
     assert (read["select_idle_ms.fit"] is None) == (cell.lanes == 1)
+    masked = "mask_mode" in cell.traffic
+    assert ("nbmf_mm.wait.n_obs" in tab) == masked
+    assert tab.get("nbmf_mm.wait.binary_scan", {}).get("count", 0) == 2 * fits * masked
+    assert out["result"]["metrics"]["staging_ms.fit"]["value"] == pytest.approx(
+        read["staging_ms.fit"])

@@ -43,6 +43,14 @@ def test_reduce():
     assert gaps["aten::uniform_"] == pytest.approx(105 / 1e6)  # 1000..1105
     assert gaps["aten::add"] == pytest.approx((1810 - 1450) / 1e6)
     assert sum(gaps.values()) == pytest.approx(1e-3 - rec["busy_s"])
+    assert rec["spans"] == {}  # no span of the program in this trace
+
+
+def test_reduce_keeps_the_programs_spans():
+    stage = X("user_annotation", "nbmf_mm.stage", 1000, 100)
+    rec = tracing.reduce([*TRACE, stage])
+    assert rec["spans"] == {"nbmf_mm.stage": {"count": 1, "host_s": pytest.approx(1e-4),
+                                              "idle_s": pytest.approx(1e-4)}}
 
 
 def test_no_window_no_record():

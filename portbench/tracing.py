@@ -13,7 +13,9 @@ The harness marks the window and each fit with ``record_function`` spans
 - ``fit_start_ms``: for each fit, from its span's start to the start of the
   first kernel after it;
 - the breakdown: the device operations that took most time, and the idle
-  gaps of the device summed by the innermost host activity at their middle.
+  gaps of the device summed by the innermost host activity at their middle;
+- ``spans``: the program's own ``nbmf_mm.*`` spans, reduced by
+  :func:`portbench.spans.table`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import tempfile
 from collections import defaultdict
 
 import torch
+
+from . import spans as program_spans
 
 WINDOW = "portbench.window"
 FIT = "portbench.solve"
@@ -125,4 +129,5 @@ def reduce(trace_events: list) -> dict:
         "syncs": sum(name in SYNC_CALLS for name in runtime),
         "fit_start_ms": fit_start_ms,
         "breakdown": {"device_ops": top(per_name), "idle_gaps": top(gaps)},
+        "spans": program_spans.table(trace_events),
     }
