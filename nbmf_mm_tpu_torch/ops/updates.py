@@ -21,7 +21,8 @@ JAX functions do: under ``"default"`` or ``"high"`` every operand of every
 product is rounded to bf16 or TF32 first (:mod:`~nbmf_mm_tpu_torch.ops.tiers`
 defines the tiers; the JAX package on the CPU computes every tier in fp32).
 
-Restarts and hyperparameter grids batch the factors: :func:`mm_sweep` and
+:func:`mm_sweep` is :func:`h_step` then :func:`w_step`.  Restarts and
+hyperparameter grids batch the factors: these three and
 :func:`map_objective` also take ``W (R, k, m)`` with ``H (R, k, n)`` over the
 same data, and then ``alpha``/``beta`` as floats or as one value per lane.
 They run the unbatched function lane by lane and stack the results, so lane
@@ -40,6 +41,8 @@ from .tiers import complement, mxu_round, operand_form
 __all__ = [
     "precompute_masked_terms",
     "clip_upper_interior",
+    "h_step",
+    "w_step",
     "mm_sweep",
     "map_objective",
     "fold_in_w_update",
@@ -125,6 +128,27 @@ def _lane_value(x, r: int) -> float:
     return float(x) if isinstance(x, (int, float)) else float(x[r])
 
 
+def h_step(W, H, Ym, Yc, *, alpha, beta, eps: float = 1e-8, precision=None) -> torch.Tensor:
+    """The H half of :func:`mm_sweep`: the Beta factor after its MM step
+    under ``W``.  Batched factors step lane by lane."""
+    if W.dim() == 3:
+        return torch.stack([h_step(W[r], H[r], Ym, Yc, alpha=_lane_value(alpha, r),
+                                   beta=_lane_value(beta, r), eps=eps, precision=precision)
+                            for r in range(W.shape[0])])
+    return _h_update(W, H, Ym, Yc, alpha, beta, eps, operand_form(precision))
+
+
+def w_step(W, H_new, Ym, Ym2, *, n_real: int, eps: float = 1e-8, projection: str = "normalize",
+           precision=None) -> torch.Tensor:
+    """The W half of :func:`mm_sweep`: the simplex factor after its MM step
+    under the new ``H``.  Batched factors step lane by lane."""
+    if W.dim() == 3:
+        return torch.stack([w_step(W[r], H_new[r], Ym, Ym2, n_real=n_real, eps=eps,
+                                   projection=projection, precision=precision)
+                            for r in range(W.shape[0])])
+    return _w_update(W, H_new, Ym, Ym2, n_real, eps, projection, operand_form(precision))
+
+
 def mm_sweep(
     W: torch.Tensor,
     H: torch.Tensor,
@@ -146,16 +170,9 @@ def mm_sweep(
     factors ``(R, k, m)``, ``(R, k, n)`` sweep lane by lane.  ``precision``
     is the tier of every product.
     """
-    if W.dim() == 3:
-        lanes = [mm_sweep(W[r], H[r], Ym, Ym2, Yc, alpha=_lane_value(alpha, r),
-                          beta=_lane_value(beta, r), n_real=n_real, eps=eps,
-                          projection=projection, precision=precision)
-                 for r in range(W.shape[0])]
-        return torch.stack([w for w, _ in lanes]), torch.stack([h for _, h in lanes])
-    form = operand_form(precision)
-    H_new = _h_update(W, H, Ym, Yc, alpha, beta, eps, form)
-    W_new = _w_update(W, H_new, Ym, Ym2, n_real, eps, projection, form)
-    return W_new, H_new
+    H_new = h_step(W, H, Ym, Yc, alpha=alpha, beta=beta, eps=eps, precision=precision)
+    return w_step(W, H_new, Ym, Ym2, n_real=n_real, eps=eps, projection=projection,
+                  precision=precision), H_new
 
 
 def map_objective(

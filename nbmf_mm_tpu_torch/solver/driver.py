@@ -5,7 +5,8 @@ Two loops solve one initialization, or a batch of them in lockstep, both on
 the caller's device:
 
 - :func:`_solve_core` — the plain loop (counterpart of the JAX ``"jnp"``
-  route): :func:`~nbmf_mm_tpu_torch.ops.updates.mm_sweep` and
+  route): :func:`~nbmf_mm_tpu_torch.ops.updates.h_step`,
+  :func:`~nbmf_mm_tpu_torch.ops.updates.w_step` and
   :func:`~nbmf_mm_tpu_torch.ops.updates.map_objective` on dense operands;
 - :func:`_solve_core_fused` — the shifted-loss kernel loop (counterpart of
   ``_solve_core_pallas``): per sweep one H pass (H-update terms and the
@@ -48,7 +49,12 @@ While a profiler records (:func:`~nbmf_mm_tpu_torch.utils.profiling.trace`),
 ``init_copy``, ``operands``), ``nbmf_mm.loop`` with one ``nbmf_mm.sweep`` a
 sweep, ``nbmf_mm.select`` for restarts and ``nbmf_mm.finish``; and
 ``nbmf_mm.wait.<site>`` around each blocking host read (``stop_flag``,
-``binary_scan``, ``n_obs``, ``result``, ``argmin``, ``drift``).
+``binary_scan``, ``n_obs``, ``result``, ``argmin``, ``drift``).  Each pass
+over all lanes is one span: ``nbmf_mm.hpass`` around an H pass (the
+H-update step in the plain loop), ``nbmf_mm.wpass`` around a W pass, so a
+fit of ``s`` sweeps records ``s`` of each, and the fused loop's packed fill
+one ``hpass`` more.  The dense fill (``loglik_sum``) and the plain loop's
+objective sit in neither.
 """
 
 from __future__ import annotations
@@ -74,9 +80,10 @@ from ..ops.packed import (
 from ..ops.projection import project_simplex_duchi
 from ..ops.updates import (
     clip_upper_interior,
+    h_step,
     map_objective,
-    mm_sweep,
     precompute_masked_terms,
+    w_step,
 )
 from ..utils import debugging
 from ..utils.profiling import span
@@ -337,9 +344,12 @@ def _solve_core(Ym, Ym2, Yc, W0, H0, alpha, beta, tol, eps, n_obs, n_real, *,
         check_nan = debugging.nan_checks_enabled()
         while it < max_iter and not all_done:
             with span("nbmf_mm.sweep"):
-                W_new, H_new = mm_sweep(W, H, Ym, Ym2, Yc, alpha=alpha, beta=beta,
-                                        n_real=n_real, eps=eps, projection=projection,
-                                        precision=precision)
+                with span("nbmf_mm.hpass"):
+                    H_new = h_step(W, H, Ym, Yc, alpha=alpha, beta=beta, eps=eps,
+                                   precision=precision)
+                with span("nbmf_mm.wpass"):
+                    W_new = w_step(W, H_new, Ym, Ym2, n_real=n_real, eps=eps,
+                                   projection=projection, precision=precision)
                 loss = map_objective(W_new, H_new, Ym, Yc, alpha=alpha, beta=beta, n_obs=n_obs,
                                      eps=eps, precision=precision)
                 if check_nan:
@@ -373,7 +383,10 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
     ``it-1`` and makes the stopping decision the reference made before sweep
     ``it``.  When ``max_iter`` runs out, one more pass fills the last entry:
     the packed H pass, or ``loglik_sum`` on dense operands, as the JAX tiled
-    route does (its ``ll`` is the dense H pass's, bitwise).
+    route does (its ``ll`` is the dense H pass's, bitwise).  Every H-pass
+    call, the packed fill's too, runs in an ``nbmf_mm.hpass`` span and every
+    W-pass call in an ``nbmf_mm.wpass`` span; ``loglik_sum`` runs in neither,
+    in ``nbmf_mm.loop`` after the last ``nbmf_mm.sweep``.
 
     ``packed`` selects the operand set: int32 words (``Y1`` packs ``Ym``)
     or dense f32 (``Y1`` is ``Ym``), or dense bf16 in the bf16-data mode.
@@ -403,7 +416,8 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
     tier = dict(precision=mxu_precision)
 
     def hloss(W, H):
-        return h_pass(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm, **tier)
+        with span("nbmf_mm.hpass"):
+            return h_pass(W, H, Y1, Y2_h, eps=eps, m_real=m_real, n_real=n_real, bm=bm, **tier)
 
     def final_ll(W, H):
         if packed:
@@ -421,7 +435,8 @@ def _solve_core_fused(Y1, Y2_h, Y2_w, W0p, H0p, alpha, beta, tol, n_obs, *, pack
         num = H * Num + _over_factor(am1)
         den = (1.0 - H) * Den + _over_factor(bm1)
         H_new = cs.apply_col_validity(torch.clamp(num / (num + den + eps), eps, upper), n_real)
-        T = w_pass(W, H_new, Y1, Y2_w, eps=eps, n_real=n_real, bm=bm, **tier)
+        with span("nbmf_mm.wpass"):
+            T = w_pass(W, H_new, Y1, Y2_w, eps=eps, n_real=n_real, bm=bm, **tier)
         W_raw = W * T
         if projection == "normalize":
             W_new = W_raw / n_real
