@@ -8,7 +8,9 @@ on the card: the bit-packed pair K1/K2 and the three dense kernels, which on
 binary data must equal K1/K2 bitwise, the two W passes again at the
 shapes that hit their column split's edges, and the four H passes (K1, the
 dense H pass, ``loglik_sum`` and ``h_terms``) at the shapes that hit their
-row split's edges.  Then it drives the port's three main
+row split's edges and at ranks on both sides of the warp-specialised
+``TK = 16`` body's dead k rows, with 16 lanes against one-lane launches.
+Then it drives the port's three main
 paths through the entry points a user calls, each with the launch counters
 set to 0 just before and read just after:
 
@@ -48,8 +50,9 @@ set-up breakdown of a fit from numpy input with the three host stagings.
 Phase 9 is restarts and grids, the fourth main path: the five production
 kernels with a leading lane axis ``R`` on the factors, lane by lane bitwise
 against the unbatched kernels and one lane per shape against the plain
-version (the headline with ``R = 4``, lastfm, 1000 x 1234 at k = 17 and 200
-and one word row with ``R`` in 1 and 3, all three mask modes); then, each with
+version (the headline with ``R = 4`` and, for the warp-specialised H pass,
+at k = 256 with ``R = 16``, lastfm, 1000 x 1234 at k = 17 and 200 and one
+word row with ``R`` in 1 and 3, all three mask modes); then, each with
 the launch and lane counters zeroed before and read after, ``NBMF.fit`` with
 ``n_init=16`` on the headline binary matrix (its best lane again as a
 standalone ``solve`` from that lane's inits), ``solve(n_init=4,
@@ -211,10 +214,20 @@ W_EDGE_LANES = 16
 # of 4 (n_real inside the last block) and m_real inside the last word rows
 # (chunks of one or two word rows, boundaries inside the stripes of
 # bm = 256), one word row (bm = 32, m_real inside it), and bm = Mp (one
-# stripe of seven word rows, as the hloss_ngrid probes walk it).
-H_EDGES = (*((f"ragged k={k}", (1_000, 1_234), k) for k in (1, 17, 33, 200, 256)),
+# stripe of seven word rows, as the hloss_ngrid probes walk it).  k = 129
+# and 240 put the warp-specialised TK = 16 body on both sides of its dead k
+# rows (15 a consumer thread at 129, one at 240).  At 1000x1234 its chunks
+# hold two word rows, so the last three shapes give it chunks of 3 and 4
+# (2600x1000) and of 5 and 6 word rows (1600x1500): its ring then wraps,
+# the producers wait for the consumers to free a stage and reuse it.  Each
+# also runs H_EDGE_LANES lanes against one-lane launches.
+H_EDGES = (*((f"ragged k={k}", (1_000, 1_234), k) for k in (1, 17, 33, 129, 200, 240, 256)),
            ("one word row bm=32", (20, 1_000), 8),
-           ("one stripe bm=Mp", (200, 1_000), 8))
+           ("one stripe bm=Mp", (200, 1_000), 8),
+           ("chunks of 3-4 word rows k=129", (2_600, 1_000), 129),
+           ("chunks of 5-6 word rows k=240", (1_600, 1_500), 240),
+           ("chunks of 3-4 word rows k=256", (2_600, 1_000), 256))
+H_EDGE_LANES = 16
 # The JAX reference package is named as the port without its "_torch".
 SWEEP = "nbmf_mm_tpu_torch".removesuffix("_torch") + "/ops/pallas_sweep.py"
 # name: (source, file:line of the TPU kernel it replaces).  The kernels of
@@ -679,9 +692,13 @@ def check_hpass_edges(card, cs, ds, errors):
     on [0,1] data under a weighted mask, against their plain versions in all
     three mask modes, each launched twice for bitwise repeatability; dense
     == packed, loglik_sum's ll == the H pass's and h_terms' Num/Den == the H
-    pass's, bitwise."""
+    pass's, bitwise; H_EDGE_LANES lanes of K1 and of the dense pass against
+    one-lane launches bitwise.  Returns ``{label: digest}`` of the Num/Den
+    computed from the fixed draws, for a comparison with another tree's
+    kernels on the same draws."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    inside = []
+    inside, digests = [], {}
+    ring = set()  # chunk lengths of 3 or more word rows the warp-specialised body ran
     for label, (m, n), k in H_EDGES:
         rng = np.random.default_rng(m + n + k)
         Y = (rng.random((m, n)) < 0.3).astype(np.float32)
@@ -689,8 +706,12 @@ def check_hpass_edges(card, cs, ds, errors):
         bm, Mp, Np = cs.plan_packing(m, n)
         plan = cs.plan_h_split(Mp, Np, k, n_sm)
         inside.append(any(b % (bm // 32) for b, _ in plan.chunks))
+        if cs.h_warp_specialised(k):
+            ring |= {e - b for b, e in plan.chunks if e - b >= 3}
         worst = worst_ll = 0.0
-        repeat = same = True
+        repeat = same = lanes_same = True
+        WL, HL = lane_factors(m, n, k, Mp, Np, H_EDGE_LANES, 20 + k)
+        terms = []
         for mode in MODES:
             for o, binary in ((operands(Y, k, mode, 10, cs), True),
                               (operands(soft, k, mode, 11, cs, weighted=True), False)):
@@ -718,18 +739,36 @@ def check_hpass_edges(card, cs, ds, errors):
                 h = got["hloss_terms"][0]
                 same &= torch.equal(got["loglik_sum"][0][0], h[2])
                 same &= all(map(torch.equal, got["h_terms"][0], h[:2]))
+                lane_runs = [lambda W, H: ds.hloss_terms(W, H, o["Ym"], o["Yc"], **kw)]
                 if binary:
                     same &= all(map(torch.equal, got["hloss_terms_packed"][0], h))
+                    lane_runs.append(lambda W, H: cs.hloss_terms_packed(
+                        W, H, o["words"], o["words2_h"], **kw))
+                for run in lane_runs:
+                    batched = run(WL, HL)
+                    lanes_same &= all(all(map(torch.equal, (x[r] for x in batched),
+                                              run(WL[r], HL[r])))
+                                      for r in range(H_EDGE_LANES))
+                    terms += [*batched[:2]]
+                terms += [*h[:2]]
+        torch.cuda.synchronize()
+        digests[label] = digest(*terms)
         print(f"H pass {label} {m}x{n} k={k} (Mp {Mp}, Np {Np}, bm {bm}; {plan.nsplit} row "
               f"chunks, {plan.blocks} blocks, a chunk boundary inside a stripe {inside[-1]}): "
               f"K1, dense H, loglik_sum, h_terms (binary, weighted [0,1]) in {'/'.join(MODES)}: "
               f"max rel err {worst:.3e} (bound {TOL_TERMS:g} of max|plain|), ll {worst_ll:.3e} "
               f"(bound {TOL_LL:g}); bitwise repeat {repeat}; dense == packed, loglik_sum == ll, "
-              f"h_terms == Num/Den bitwise {same} [{card}]", flush=True)
+              f"h_terms == Num/Den bitwise {same}; {H_EDGE_LANES} lanes == one-lane launches "
+              f"bitwise {lanes_same}; Num/Den digest {digests[label]} [{card}]", flush=True)
         check(worst <= TOL_TERMS and worst_ll <= TOL_LL, f"H pass {label}: kernel disagrees")
         check(repeat, f"H pass {label}: outputs differ between two launches")
         check(same, f"H pass {label}: a bitwise equality of the H passes failed")
+        check(lanes_same, f"H pass {label}: a lane differs from the one-lane launch")
     check(any(inside), "no H_EDGES shape puts a row-chunk boundary inside a stripe")
+    check(any(r % 2 for r in ring) and not all(r % 2 for r in ring),
+          f"no H_EDGES shape gives the warp-specialised H pass chunks of 3 or more word rows, "
+          f"odd and even (it gets {sorted(ring)})")
+    return digests
 
 
 def check_fit(name, est, losses, card):
@@ -1796,6 +1835,8 @@ def restarts_and_grids_phase(NBMF, solve, grid_solve, X, P, lastfm, lastfm_soft,
     each counted with the counters set to 0 just before and read just after."""
     k = HEADLINE["k"]
     check_batched_kernels("headline", X, P, k, (LANES_CHECKED,), card, cs, ds, errors)
+    # The warp-specialised H pass at the shape the K=256 restart cell gives it.
+    check_batched_kernels("headline k=256", X, P, 256, (LANES_TIMED,), card, cs, ds, errors)
     for label, shape, rank in LANE_EDGES:
         if shape is None:
             Y, soft = lastfm, lastfm_soft

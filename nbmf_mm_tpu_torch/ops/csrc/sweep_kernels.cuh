@@ -57,7 +57,37 @@
 //     rounds of resident blocks, the S partials added in a fixed order by a
 //     second kernel;
 //   - registers: __launch_bounds__ keeps two 256-thread blocks on an SM up
-//     to k = 128 (one above), for every instance, h_terms included.
+//     to k = 128 (one above), for every instance, h_terms included;
+//   - serialised phases at TK = 16 (k = 129..256).  There one block an SM
+//     (128 accumulators a thread) leaves no second block to fill the FMA
+//     pipes while a word row's phase A, logs and barriers run, so the
+//     production pass (TERMS, policy Sweep) is warp-specialised
+//     (hpass_split): a warpgroup of producers runs phase A of word row v
+//     (4 x 4 register tiles of WH: 8 loads per 64 FMAs), the reciprocals,
+//     the logs and the cp.async copies, while two warpgroups of consumers
+//     run phase B of row v - 1; they meet on named barriers in a ring of
+//     three W slices and two stages each of Ps/Qs and of the operand tiles
+//     (193 KiB a block packed, 224 KiB dense with two operands), and
+//     setmaxnreg moves registers from the producers (120 a thread) to the
+//     consumers (192).  A consumer loads k row kg + 16 (i + 1) of W before
+//     the FMAs of row kg + 16 i: behind the loop's dead-row exit test (as
+//     the turn-taking body still has it) each load waited for its data.
+//     Both bodies call one copy of the stage copies, the per-entry p, q and
+//     ll terms, the phase-B sums and the write-out (hpass_stage,
+//     hpass_column, hpass_accumulate, hpass_write), so their Num and Den
+//     stay bitwise equal.
+//     K1 at 10240^2, k = 256, 16 lanes: 79.66 ms against the turn-taking
+//     body's 93.56 (48% of the 38.46 ms bound; H100 SXM, 700 W).  What
+//     bounds it is latency, not a pipe: one producer and two consumer warps
+//     an SM sub-partition issue about half the cycles, and each role alone
+//     runs at twice its share of the FMA time; a 16-byte shared load costs
+//     an SM about 2 to 2.5 cycles whatever its addresses (8 or 16 warps
+//     loading).  Measured slower (ms, same calls): two 32-column
+//     turn-taking blocks an SM (100.8); 256 producer threads of 4 x 2 tiles
+//     (90.9 to 100.5); every role at the launch's 168 registers (101.7,
+//     spilling); consumers at 200 to 216 registers (95.9 to 103.2: the
+//     producers' loop schedules worse in what is left); p and q loaded a
+//     step ahead (104.5 to 107.8); W loaded behind the exit test (80.68).
 //
 // The W pass (wpass_kernel) replaces the TPU kernels w_terms_packed
 // (pallas_sweep.py:947), w_terms (:333) and w_terms_stripe (:650).  Its work
@@ -132,6 +162,11 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+// Launches of the warp-specialised H pass (HPass::kSplit) since the library
+// was loaded, counted by its launcher (defined in sweep_packed.cu), so that
+// a caller can tell which body a launch ran.
+extern "C" long long nbmf_h_split_launches;
 
 namespace {
 
@@ -820,6 +855,7 @@ struct HPass {
     static constexpr bool kReads = E::kIdentity == 0 || E::kIdentity == 2;
     static constexpr int kpad = 16 * TK;
     static constexpr int kOperands = kReads ? (SECOND ? 2 : 1) : 0;
+    static constexpr bool kTerms = TERMS;
     // Shared memory in floats: Hs [kpad/4][64][4]; Ws two stages of
     // [kpad][32]; Ps, Qs [64][32] (TERMS only); operand tiles, dense
     // [32][64] or words [64], each.
@@ -827,12 +863,37 @@ struct HPass {
     static constexpr int kWs = kpad * kHRows;
     static constexpr int kPQ = TERMS ? kHCols * kHRows : 0;
     static constexpr int kYs = kDense ? kHRows * kHCols : kHCols;
+    // Warp-specialised at TK = 16 in the production pass (hpass_split):
+    // kProducers threads of producers (phase A) and two warpgroups of
+    // consumers (phase B), one block an SM; else 256 threads take the
+    // phases in turn.
+    static constexpr bool kSplit = TK == 16 && TERMS && std::is_same<E, Sweep>::value;
+    static constexpr int kProducers = 128;
+    static constexpr int kBlock = kSplit ? kProducers + 256 : kThreads;
+    // Registers a thread of each role (setmaxnreg): the consumers' 128
+    // accumulators take what the producers give up of the 64K an SM has.
+    static constexpr int kProducerRegs = 120, kConsumerRegs = 192;
+    static_assert(kProducers * kProducerRegs + 256 * kConsumerRegs <=
+                      kBlock * (65536 / kBlock / 8 * 8),
+                  "the roles take more registers than the block is launched with");
+    static_assert(kProducerRegs % 8 == 0 && kConsumerRegs % 8 == 0 && kProducerRegs >= 24 &&
+                      kConsumerRegs <= 256,
+                  "setmaxnreg takes a multiple of 8 from 24 to 256");
+    // Stages: of the W slice, the consumers' word row, the producers' and
+    // the one a copy fills; of Ps/Qs, the consumers' and the producers'; of
+    // the operand tiles, the producers' and the one a copy fills.
+    static constexpr int kWStages = kSplit ? 3 : 2;
+    static constexpr int kPQStages = kSplit ? 2 : 1;
+    static constexpr int kYStages = kSplit ? 2 : 1;
     static constexpr size_t kSmem =
-        sizeof(float) * (size_t)(kHs + 2 * kWs + 2 * kPQ + kOperands * kYs);
+        sizeof(float) * (size_t)(kHs + kWStages * kWs + kPQStages * 2 * kPQ +
+                                 kYStages * kOperands * kYs);
     // Two blocks per SM (<= 128 registers a thread) while the accumulators
     // leave room; one at TK = 16.
     static constexpr int kMinBlocks = TK <= 8 ? 2 : 1;
 };
+
+enum HBarrier : int { kHFull = 1, kHEmpty = 3, kHProducers = 5 };
 
 // Wp[kk][32 w + b] = W[kk][data row of bit b of word row w], rounded to bf16
 // where the policy asks: the H pass's W in bit-plane order, one copy per lane
@@ -848,25 +909,259 @@ __global__ void bitplane_w_kernel(const float* __restrict__ W, float* __restrict
         W[lane0 + (size_t)kk * Mp + word_row_bit(c >> 5, c & 31, bm, bm / 32)]);
 }
 
-// SECOND: an explicit second operand (corrected mode's Yc); otherwise
-// yc = 1 - ym.  LOSS=false compiles the logs and the ll partials out
-// (h_terms); TERMS=false phase B and Num/Den (loglik_sum).
-template <int TK, bool SECOND, typename Y, bool TERMS, bool LOSS, class E>
-__global__ void __launch_bounds__(kThreads, (HPass<TK, SECOND, Y, TERMS, E>::kMinBlocks))
-hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
-             const Y* __restrict__ y, const Y* __restrict__ y2, float* __restrict__ num_out,
-             float* __restrict__ den_out, double* __restrict__ ll_part, int k, int Mp, int Np,
-             int bm, int m_real, int n_real, float eps) {
-    using P = HPass<TK, SECOND, Y, TERMS, E>;
+// The steps both H-pass bodies (the turn-taking body of hpass_kernel and
+// hpass_split) take alike: Num and Den of the two are bitwise equal because
+// they run this one copy of every per-entry term and every sum.
+
+// H's (k x 64) tile of the block into Hs [kpad/4][64][4], by threads t,
+// t + NT, ...; zero beyond k and Np.
+template <class P, class E, int NT>
+__device__ __forceinline__ void hpass_load_h(float* Hs, const float* H, int t, int k, int Np,
+                                             int c0) {
+    for (int e = t; e < P::kpad * kHCols; e += NT) {
+        const int kk = e / kHCols, c = e % kHCols;
+        const float v = (kk < k && c0 + c < Np) ? H[(size_t)kk * Np + c0 + c] : 0.f;
+        Hs[((kk >> 2) * kHCols + c) * 4 + (kk & 3)] = mxu_operand<E::kRound>(v);
+    }
+}
+
+// The cp.async copies of word row w's W slice into Ws and of its operand
+// tiles into Ys (y's tile, then y2's), by threads t, t + NT, ...; zero
+// beyond k and Np; one commit group.
+template <class P, int NT, typename Y>
+__device__ __forceinline__ void hpass_stage(float* Ws, float* Ys, const float* Wp, const Y* y,
+                                            const Y* y2, int w, int t, int k, int Mp, int Np,
+                                            int bm, int bmw, int c0) {
+    for (int e = t; e < P::kpad * 8; e += NT) {
+        const int kk = e >> 3, ch = e & 7;
+        const bool ok = kk < k;
+        cp_async16(Ws + kk * kHRows + 4 * (ch ^ (kk & 7)),
+                   ok ? Wp + (size_t)kk * Mp + kHRows * w + 4 * ch : Wp, ok);
+    }
+    if constexpr (P::kReads) {
+        constexpr int kRowsY = P::kDense ? kHRows : 1;
+        const int row0 = word_row_bit(w, 0, bm, bmw);
+        for (int e = t; e < kRowsY * 16 * P::kOperands; e += NT) {
+            const int op = e / (kRowsY * 16), rem = e % (kRowsY * 16);
+            const int b = rem >> 4, ch = rem & 15, col = c0 + 4 * ch;
+            const bool ok = col < Np;
+            const Y* src = op ? y2 : y;
+            const size_t row = P::kDense ? (size_t)(row0 + b * bmw) : (size_t)w;
+            const int dst = P::kDense ? b * kHCols + 4 * (ch ^ ((b >> 2) & 7)) : 4 * ch;
+            cp_async16(Ys + op * P::kYs + dst, ok ? src + row * Np + col : src, ok);
+        }
+    }
+    cp_async_commit();
+}
+
+// Phase A past the WH tile, for the data rows 4 rq .. 4 rq + 3 (bits of the
+// word row whose bit 0 is data row row0) of the block's column cl (col in
+// the matrix), wh their four WH values: read the operands from Ys, form p
+// and q by policy E, add the ll terms of the entries inside the real region
+// to ll, and store p and q to Ps/Qs (TERMS).
+template <class P, class E, bool SECOND, bool LOSS>
+__device__ __forceinline__ void hpass_column(const float wh[4], const float* Ys, float* Ps,
+                                             float* Qs, int rq, int cl, int col, int row0,
+                                             int bmw, int stripe, int Mp, int bm, int m_real,
+                                             int n_real, float eps, double& ll) {
     constexpr bool kDense = P::kDense;
-    constexpr int kpad = P::kpad;
-    extern __shared__ __align__(16) float smem[];
+    float ym[4] = {0.f, 0.f, 0.f, 0.f}, yc[4] = {0.f, 0.f, 0.f, 0.f};
+    uint32_t word = 0u, word2 = 0u;
+    if constexpr (P::kReads && kDense) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+            const int at = (4 * rq + r) * kHCols + 4 * ((cl >> 2) ^ rq) + (cl & 3);
+            ym[r] = Ys[at];
+            if constexpr (SECOND) yc[r] = Ys[P::kYs + at];
+        }
+    } else if constexpr (P::kReads) {
+        word = reinterpret_cast<const uint32_t*>(Ys)[cl];
+        if constexpr (SECOND) word2 = reinterpret_cast<const uint32_t*>(Ys + P::kYs)[cl];
+    }
+    float pv[4], qv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+        const int b = 4 * rq + r;  // bit of the word row, local data row
+        const float v = wh[r];
+        float p, q;
+        if constexpr (E::kIdentity == 1) {
+            p = v;
+            q = v + 1.f;
+        } else if constexpr (E::kIdentity == 2) {
+            p = v + ym[r];
+            q = v - ym[r];
+        } else if constexpr (E::kIdentity == 3) {
+            // o2 sums o1 after each stripe: weight stripe j's rounded
+            // WH by S - j, exactly (8 significant bits times S < 2^16).
+            p = mxu_operand<E::kRound>(v);
+            q = (float)(Mp / bm - stripe) * p;
+        } else {
+            const float a = v + eps;
+            const float bb = (E::kClampB ? fmaxf(1.f - v, 0.f) : 1.f - v) + eps;
+            const float rr = 1.f / (a * bb);
+            const bool in_region = row0 + b * bmw < m_real && col < n_real;
+            if constexpr (kDense) {
+                const float c = SECOND ? yc[r] : 1.f - ym[r];
+                p = ym[r] * (bb * rr);
+                q = c * (a * rr);
+                // Explicit fmaf: one rounding, the same in every instance.
+                if (LOSS && in_region) ll += (double)fmaf(ym[r], logf(a), c * logf(bb));
+            } else if constexpr (E::kSelect) {
+                const bool bit = (word >> b) & 1u;
+                p = bit ? bb * rr : 0.f;
+                float sel;
+                if (SECOND) {
+                    const bool bit2 = (word2 >> b) & 1u;
+                    q = bit2 ? a * rr : 0.f;
+                    sel = bit ? a : (bit2 ? bb : 1.f);
+                } else {
+                    q = bit ? 0.f : a * rr;
+                    sel = bit ? a : bb;
+                }
+                if (LOSS && in_region) ll += (double)logf(sel);
+            } else {
+                // ym unpacked to a float; the products and both logs
+                // give the select form's values bitwise (1*x = x,
+                // 0*x + y = y).
+                static_assert(!SECOND, "the product form takes one operand");
+                const float ymf = (float)((word >> b) & 1u);
+                const float c = 1.f - ymf;
+                p = ymf * (bb * rr);
+                q = c * (a * rr);
+                if (LOSS && in_region) ll += (double)fmaf(ymf, logf(a), c * logf(bb));
+            }
+        }
+        pv[r] = mxu_operand<E::kRound>(p);
+        qv[r] = mxu_operand<E::kIdentity == 3 ? Round::kNone : E::kRound>(q);
+    }
+    if constexpr (P::kTerms) {
+        const int chunk = cl * (kHRows / 4) + (rq ^ (cl & 7));
+        reinterpret_cast<float4*>(Ps)[chunk] = f4(pv);
+        reinterpret_cast<float4*>(Qs)[chunk] = f4(qv);
+    }
+}
+
+// Phase B of one word row: Num += W.P and Den += W.Q over its 32 data rows
+// in ascending order, for the thread's k rows kg + 16 i (i < TK; rows from k
+// on are skipped) and columns cg + 16 c (c < 4); swp, swk are the swizzle
+// keys of those rows.  AHEAD loads k row kg + 16 (i + 1) of W before the
+// FMAs of row kg + 16 i (hpass_split: a load behind the exit test waits for
+// its data at every row); the FMAs and their order are the same either way.
+template <int TK, bool AHEAD>
+__device__ __forceinline__ void hpass_accumulate(const float* Ps, const float* Qs,
+                                                 const float* Ws, int cg, int kg, int swp,
+                                                 int swk, int k, float num[TK][4],
+                                                 float den[TK][4]) {
+    const float4* P4 = reinterpret_cast<const float4*>(Ps);
+    const float4* Q4 = reinterpret_cast<const float4*>(Qs);
+    const float4* W4 = reinterpret_cast<const float4*>(Ws);
+#pragma unroll
+    for (int r4 = 0; r4 < kHRows / 4; ++r4) {
+        float4 p[4], q[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const int chunk = (cg + 16 * c) * (kHRows / 4) + (r4 ^ swp);
+            p[c] = P4[chunk];
+            q[c] = Q4[chunk];
+        }
+        const auto row = [&](int i, const float4& wv) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                    num[i][c] = fmaf(lane(wv, r), lane(p[c], r), num[i][c]);
+                    den[i][c] = fmaf(lane(wv, r), lane(q[c], r), den[i][c]);
+                }
+        };
+        if constexpr (AHEAD) {
+            float4 wv = W4[kg * (kHRows / 4) + (r4 ^ swk)];
+#pragma unroll
+            for (int i = 0; i < TK; ++i) {
+                float4 next;
+                if (i + 1 < TK) next = W4[(kg + 16 * (i + 1)) * (kHRows / 4) + (r4 ^ swk)];
+                if (i == 0 || 16 * i < k) row(i, wv);  // uniform: skips the rows kg + 16 i >= k
+                wv = next;
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < TK; ++i) {
+                if (i > 0 && 16 * i >= k) break;  // uniform: every row kg + 16 i >= k
+                row(i, W4[(kg + 16 * i) * (kHRows / 4) + (r4 ^ swk)]);
+            }
+        }
+    }
+}
+
+// The thread's Num/Den sums to the block's (k, 64) partials at base.
+template <int TK>
+__device__ __forceinline__ void hpass_write(const float num[TK][4], const float den[TK][4],
+                                            float* num_out, float* den_out, size_t base, int c0,
+                                            int cg, int kg, int k, int Np) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const int col = c0 + cg + 16 * c;
+        if (col >= Np) continue;
+#pragma unroll
+        for (int i = 0; i < TK; ++i) {
+            const int kk = kg + 16 * i;
+            if (kk >= k) continue;
+            num_out[base + (size_t)kk * Np + col] = num[i][c];
+            den_out[base + (size_t)kk * Np + col] = den[i][c];
+        }
+    }
+}
+
+// The block's ll from the ll of its NT threads t = 0 .. NT - 1 that hold
+// one, in a fixed order: a warp tree, then thread 0 over the warps (after
+// sync(), which orders ll_warp among those threads), into ll_part.
+template <int NT, class Sync>
+__device__ __forceinline__ void hpass_ll_sum(double ll, double* ll_warp, int t, Sync sync,
+                                             double* ll_part, size_t z) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ll += __shfl_down_sync(0xffffffffu, ll, off);
+    if ((t & 31) == 0) ll_warp[t >> 5] = ll;
+    sync();
+    if (t == 0) {
+        double acc = 0.0;
+        for (int i = 0; i < NT / 32; ++i) acc += ll_warp[i];
+        ll_part[(z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = acc;
+    }
+}
+
+// The production H pass at TK = 16 (HPass::kSplit), warp-specialised: the
+// block's first warpgroup (the producers) runs phase A of word row v while
+// the other two (the consumers) run phase B of word row v - 1.  They meet on
+// named barriers: the producers report row v's Ps/Qs written on
+// kHFull + v % 2, the consumers report row v done on kHEmpty + v % 2, which
+// the producers wait for before they overwrite its stages at row v + 2.
+// Row v reads W stage v % 3 (in both phases: a slice lives until its
+// consumers are done), Ps/Qs stage v % 2 and operand stage v % 2; the
+// producers copy row v + 1's W slice and operand tiles by cp.async during
+// phase A of row v.
+//   A  the 32 x 64 WH tile, a producer 4 data rows x 4 columns (4 loads of W
+//      and 4 of H per 4 k rows for 64 FMAs; a quarter-warp reads 2 chunks of
+//      W and 4 of H a load), contraction over k in ascending order as in the
+//      turn-taking body; then hpass_column for each of its 4 columns;
+//   B  hpass_accumulate in consumer thread ct = tid - 128, each k row of W
+//      loaded one k row ahead.
+// The stage copies, every p and q and every Num/Den sum are the shared
+// steps above, so Num and Den are bitwise the turn-taking body's; ll adds
+// the same terms in another order.
+template <int TK, bool SECOND, typename Y, bool LOSS>
+__device__ __forceinline__ void hpass_split(float* smem, const float* __restrict__ Wp,
+                                            const float* __restrict__ H,
+                                            const Y* __restrict__ y, const Y* __restrict__ y2,
+                                            float* __restrict__ num_out,
+                                            float* __restrict__ den_out,
+                                            double* __restrict__ ll_part, int k, int Mp, int Np,
+                                            int bm, int m_real, int n_real, float eps) {
+    using P = HPass<TK, SECOND, Y, true, Sweep>;
+    constexpr int kMeet = P::kBlock, kYStage = P::kOperands * P::kYs;
     float* Hs = smem;
-    float* Wbuf = Hs + P::kHs;
-    float* Ps = Wbuf + 2 * P::kWs;
-    float* Qs = Ps + P::kPQ;
-    float* Ys = Qs + P::kPQ;  // y's tile, then y2's
-    __shared__ double ll_warp[kThreads / 32];
+    float* Wring = Hs + P::kHs;
+    float* PQring = Wring + P::kWStages * P::kWs;
+    float* Yring = PQring + P::kPQStages * 2 * P::kPQ;  // y's tile, then y2's, a stage
+    __shared__ double ll_warp[P::kProducers / 32];
 
     const int tid = threadIdx.x;
     const int bmw = bm / 32, Mw = Mp / 32;
@@ -876,233 +1171,221 @@ hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
     const int c0 = blockIdx.x * kHCols;
     const int S = gridDim.y, s = blockIdx.y;
     const int w_begin = s * (Mw / S) + min(s, Mw % S);
-    const int w_end = w_begin + Mw / S + (s < Mw % S ? 1 : 0);
+    const int n = Mw / S + (s < Mw % S ? 1 : 0);  // word rows of the chunk
     const int kw = (k + 7) & ~7;  // k rows phase A visits (rows >= k are zero)
 
-    for (int e = tid; e < kpad * kHCols; e += kThreads) {
-        const int kk = e / kHCols, c = e % kHCols;
-        const float v = (kk < k && c0 + c < Np) ? H[(size_t)kk * Np + c0 + c] : 0.f;
-        Hs[((kk >> 2) * kHCols + c) * 4 + (kk & 3)] = mxu_operand<E::kRound>(v);
+    hpass_load_h<P, Sweep, P::kBlock>(Hs, H, tid, k, Np, c0);
+    __syncthreads();
+
+    if (tid < P::kProducers) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(P::kProducerRegs));
+        const int pt = tid, l = tid & 31;
+        // Data rows 4 rq .. 4 rq + 3, columns cw + kCG j (j < kPC): a warp
+        // takes two row quads and every column group, a quarter-warp two
+        // row quads and four consecutive column groups.
+        constexpr int kPC = kHCols * kHRows / 4 / P::kProducers;  // columns a producer
+        constexpr int kCG = kHCols / kPC;                         // column groups
+        static_assert(P::kProducers == 4 * 32 && kCG == 16, "four producer warps");
+        const int rq = ((l >> 2) & 1) | ((pt >> 5) << 1);
+        const int cw = (l & 3) | (((l >> 3) & 3) << 2);
+        const auto stage = [&](int v) {
+            hpass_stage<P, P::kProducers>(Wring + v % P::kWStages * P::kWs,
+                                          Yring + v % P::kYStages * kYStage, Wp, y, y2,
+                                          w_begin + v, pt, k, Mp, Np, bm, bmw, c0);
+        };
+
+        double ll = 0.0;
+        if (n > 0) stage(0);
+        for (int v = 0; v < n; ++v) {
+            const int w = w_begin + v;
+            cp_async_wait_all();
+            named_sync(kHProducers, P::kProducers);  // row v has landed; row v - 1's tiles are read
+            if (v >= 2) named_sync(kHEmpty + (v & 1), kMeet);  // the consumers are done with v - 2
+            if (v + 1 < n) stage(v + 1);
+            const float* Ws = Wring + v % P::kWStages * P::kWs;
+            const float* Ys = Yring + v % P::kYStages * kYStage;
+            float* Ps = PQring + v % P::kPQStages * 2 * P::kPQ;
+
+            // ---- phase A: the WH tile, p and q, the ll terms
+            float wh[kPC][4];
+#pragma unroll
+            for (int j = 0; j < kPC; ++j)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) wh[j][r] = 0.f;
+            const float4* Hs4 = reinterpret_cast<const float4*>(Hs);
+            const float4* W4 = reinterpret_cast<const float4*>(Ws);
+#pragma unroll 1
+            for (int k8 = 0; k8 < kw; k8 += 8) {
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int kq = (k8 >> 2) + half;
+                    float4 h[kPC];
+#pragma unroll
+                    for (int j = 0; j < kPC; ++j) h[j] = Hs4[kq * kHCols + cw + kCG * j];
+#pragma unroll
+                    for (int jj = 0; jj < 4; ++jj) {
+                        const int key = 4 * half + jj;  // (k8 + key) & 7
+                        const float4 wv = W4[(k8 + key) * (kHRows / 4) + (rq ^ key)];
+#pragma unroll
+                        for (int r = 0; r < 4; ++r)
+#pragma unroll
+                            for (int j = 0; j < kPC; ++j)
+                                wh[j][r] = fmaf(lane(wv, r), lane(h[j], jj), wh[j][r]);
+                    }
+                }
+            }
+
+            const int stripe = w / bmw;
+            const int row0 = stripe * bm + (w - stripe * bmw);  // data row of bit 0
+#pragma unroll
+            for (int j = 0; j < kPC; ++j) {
+                const int cl = cw + kCG * j;
+                hpass_column<P, Sweep, SECOND, LOSS>(wh[j], Ys, Ps, Ps + P::kPQ, rq, cl, c0 + cl,
+                                                     row0, bmw, stripe, Mp, bm, m_real, n_real,
+                                                     eps, ll);
+            }
+            named_arrive(kHFull + (v & 1), kMeet);
+        }
+
+        if constexpr (LOSS)
+            hpass_ll_sum<P::kProducers>(
+                ll, ll_warp, pt, [] { named_sync(kHProducers, P::kProducers); }, ll_part, z);
+        return;
     }
 
-    // Issue the cp.async copies of word row w's W slice into stage `st` and
-    // of its operand tiles; zero beyond k and Np.
-    auto stage = [&](int w, int st) {
-        float* Ws = Wbuf + st * P::kWs;
-        for (int e = tid; e < kpad * 8; e += kThreads) {
-            const int kk = e >> 3, ch = e & 7;
-            const bool ok = kk < k;
-            cp_async16(Ws + kk * kHRows + 4 * (ch ^ (kk & 7)),
-                       ok ? Wp + (size_t)kk * Mp + kHRows * w + 4 * ch : Wp, ok);
-        }
-        if constexpr (P::kReads) {
-            constexpr int kRowsY = kDense ? kHRows : 1;
-            const int row0 = word_row_bit(w, 0, bm, bmw);
-            for (int e = tid; e < kRowsY * 16 * P::kOperands; e += kThreads) {
-                const int op = e / (kRowsY * 16), rem = e % (kRowsY * 16);
-                const int b = rem >> 4, ch = rem & 15, col = c0 + 4 * ch;
-                const bool ok = col < Np;
-                const Y* src = op ? y2 : y;
-                const size_t row = kDense ? (size_t)(row0 + b * bmw) : (size_t)w;
-                const int dst = kDense ? b * kHCols + 4 * (ch ^ ((b >> 2) & 7)) : 4 * ch;
-                cp_async16(Ys + op * P::kYs + dst, ok ? src + row * Np + col : src, ok);
-            }
-        }
-        cp_async_commit();
-    };
-
-    // Phase A layout: data rows 4 rq .. 4 rq + 3 (bits of the word row),
-    // columns cw and cw + 32.
-    const int rq = tid & 7, cw = tid >> 3;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(P::kConsumerRegs));
+    const int ct = tid - P::kProducers;  // consumer thread
     // Phase B layout: k rows kg + 16 i, columns cg + 16 c; a warp holds 8
     // column groups and 4 k groups, so each of its p, q and W loads reads at
     // most 128 distinct bytes (one shared-memory wavefront).
-    const int cg = (tid & 7) | ((tid >> 5 & 1) << 3), kg = (tid >> 3 & 3) | ((tid >> 6) << 2);
-    const int swp = cg & 7, swk = kg & 7;  // the swizzle keys of those rows
-
+    const int cg = (ct & 7) | ((ct >> 5 & 1) << 3), kg = (ct >> 3 & 3) | ((ct >> 6) << 2);
     float num[TK][4], den[TK][4];
 #pragma unroll
     for (int i = 0; i < TK; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) num[i][c] = den[i][c] = 0.f;
-    double ll = 0.0;
 
-    if (w_begin < w_end) stage(w_begin, 0);
-    for (int w = w_begin; w < w_end; ++w) {
-        const int st = (w - w_begin) & 1;
-        const float* Ws = Wbuf + st * P::kWs;
-        cp_async_wait_all();
-        __syncthreads();  // step w has landed; the previous phase B is done
+    for (int v = 0; v < n; ++v) {
+        named_sync(kHFull + (v & 1), kMeet);  // row v's Ps/Qs are written
+        const float* Ps = PQring + v % P::kPQStages * 2 * P::kPQ;
+        // ---- phase B: the accumulation over the row's 32 data rows
+        hpass_accumulate<TK, true>(Ps, Ps + P::kPQ, Wring + v % P::kWStages * P::kWs, cg, kg,
+                                   cg & 7, kg & 7, k, num, den);
+        if (v + 2 < n) named_arrive(kHEmpty + (v & 1), kMeet);  // its stages are free
+    }
+    hpass_write<TK>(num, den, num_out, den_out, (z * S + s) * k * Np, c0, cg, kg, k, Np);
+}
 
-        // ---- phase A: the WH tile, p and q, the ll terms
-        float wh[2][4];
+// SECOND: an explicit second operand (corrected mode's Yc); otherwise
+// yc = 1 - ym.  LOSS=false compiles the logs and the ll partials out
+// (h_terms); TERMS=false phase B and Num/Den (loglik_sum).
+template <int TK, bool SECOND, typename Y, bool TERMS, bool LOSS, class E>
+__global__ void __launch_bounds__((HPass<TK, SECOND, Y, TERMS, E>::kBlock),
+                                  (HPass<TK, SECOND, Y, TERMS, E>::kMinBlocks))
+hpass_kernel(const float* __restrict__ Wp, const float* __restrict__ H,
+             const Y* __restrict__ y, const Y* __restrict__ y2, float* __restrict__ num_out,
+             float* __restrict__ den_out, double* __restrict__ ll_part, int k, int Mp, int Np,
+             int bm, int m_real, int n_real, float eps) {
+    using P = HPass<TK, SECOND, Y, TERMS, E>;
+    extern __shared__ __align__(16) float smem[];
+    if constexpr (P::kSplit) {
+        hpass_split<TK, SECOND, Y, LOSS>(smem, Wp, H, y, y2, num_out, den_out, ll_part, k, Mp,
+                                         Np, bm, m_real, n_real, eps);
+    } else {
+        float* Hs = smem;
+        float* Wbuf = Hs + P::kHs;
+        float* Ps = Wbuf + 2 * P::kWs;
+        float* Qs = Ps + P::kPQ;
+        float* Ys = Qs + P::kPQ;  // y's tile, then y2's
+        __shared__ double ll_warp[kThreads / 32];
+
+        const int tid = threadIdx.x;
+        const int bmw = bm / 32, Mw = Mp / 32;
+        const size_t z = blockIdx.z;  // the lane: its W, H, partials and ll
+        Wp += z * k * Mp;
+        H += z * k * Np;
+        const int c0 = blockIdx.x * kHCols;
+        const int S = gridDim.y, s = blockIdx.y;
+        const int w_begin = s * (Mw / S) + min(s, Mw % S);
+        const int w_end = w_begin + Mw / S + (s < Mw % S ? 1 : 0);
+        const int kw = (k + 7) & ~7;  // k rows phase A visits (rows >= k are zero)
+
+        hpass_load_h<P, E, kThreads>(Hs, H, tid, k, Np, c0);
+
+        // Phase A layout: data rows 4 rq .. 4 rq + 3 (bits of the word row),
+        // columns cw and cw + 32.
+        const int rq = tid & 7, cw = tid >> 3;
+        // Phase B layout: k rows kg + 16 i, columns cg + 16 c; a warp holds 8
+        // column groups and 4 k groups, so each of its p, q and W loads reads at
+        // most 128 distinct bytes (one shared-memory wavefront).
+        const int cg = (tid & 7) | ((tid >> 5 & 1) << 3), kg = (tid >> 3 & 3) | ((tid >> 6) << 2);
+        const int swp = cg & 7, swk = kg & 7;  // the swizzle keys of those rows
+
+        float num[TK][4], den[TK][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int i = 0; i < TK; ++i)
 #pragma unroll
-            for (int r = 0; r < 4; ++r) wh[j][r] = 0.f;
-        const float4* Hs4 = reinterpret_cast<const float4*>(Hs);
+            for (int c = 0; c < 4; ++c) num[i][c] = den[i][c] = 0.f;
+        double ll = 0.0;
+
+        if (w_begin < w_end)
+            hpass_stage<P, kThreads>(Wbuf, Ys, Wp, y, y2, w_begin, tid, k, Mp, Np, bm, bmw, c0);
+        for (int w = w_begin; w < w_end; ++w) {
+            const int st = (w - w_begin) & 1;
+            const float* Ws = Wbuf + st * P::kWs;
+            cp_async_wait_all();
+            __syncthreads();  // step w has landed; the previous phase B is done
+
+            // ---- phase A: the WH tile, p and q, the ll terms
+            float wh[2][4];
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) wh[j][r] = 0.f;
+            const float4* Hs4 = reinterpret_cast<const float4*>(Hs);
 #pragma unroll 4
-        for (int k8 = 0; k8 < kw; k8 += 8) {
+            for (int k8 = 0; k8 < kw; k8 += 8) {
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int kq = (k8 >> 2) + half;
-                const float4 ha = Hs4[kq * kHCols + cw];
-                const float4 hb = Hs4[kq * kHCols + cw + 32];
+                for (int half = 0; half < 2; ++half) {
+                    const int kq = (k8 >> 2) + half;
+                    const float4 ha = Hs4[kq * kHCols + cw];
+                    const float4 hb = Hs4[kq * kHCols + cw + 32];
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    const int key = 4 * half + j;  // (k8 + key) & 7
-                    const float4 wv =
-                        reinterpret_cast<const float4*>(Ws + (k8 + key) * kHRows)[rq ^ key];
+                    for (int j = 0; j < 4; ++j) {
+                        const int key = 4 * half + j;  // (k8 + key) & 7
+                        const float4 wv =
+                            reinterpret_cast<const float4*>(Ws + (k8 + key) * kHRows)[rq ^ key];
 #pragma unroll
-                    for (int r = 0; r < 4; ++r) {
-                        wh[0][r] = fmaf(lane(wv, r), lane(ha, j), wh[0][r]);
-                        wh[1][r] = fmaf(lane(wv, r), lane(hb, j), wh[1][r]);
+                        for (int r = 0; r < 4; ++r) {
+                            wh[0][r] = fmaf(lane(wv, r), lane(ha, j), wh[0][r]);
+                            wh[1][r] = fmaf(lane(wv, r), lane(hb, j), wh[1][r]);
+                        }
                     }
                 }
             }
+
+            const int stripe = w / bmw;
+            const int row0 = stripe * bm + (w - stripe * bmw);  // data row of bit 0
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int cl = cw + 32 * j;
+                hpass_column<P, E, SECOND, LOSS>(wh[j], Ys, Ps, Qs, rq, cl, c0 + cl, row0, bmw,
+                                                 stripe, Mp, bm, m_real, n_real, eps, ll);
+            }
+            __syncthreads();  // Ps, Qs written; the operand tile is consumed
+            if (w + 1 < w_end)
+                hpass_stage<P, kThreads>(Wbuf + (st ^ 1) * P::kWs, Ys, Wp, y, y2, w + 1, tid, k,
+                                         Mp, Np, bm, bmw, c0);
+
+            // ---- phase B: the accumulation over the step's 32 data rows
+            if constexpr (TERMS)
+                hpass_accumulate<TK, false>(Ps, Qs, Ws, cg, kg, swp, swk, k, num, den);
         }
 
-        const int stripe = w / bmw;
-        const int row0 = stripe * bm + (w - stripe * bmw);  // data row of bit 0
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int cl = cw + 32 * j, col = c0 + cl;
-            float ym[4] = {0.f, 0.f, 0.f, 0.f}, yc[4] = {0.f, 0.f, 0.f, 0.f};
-            uint32_t word = 0u, word2 = 0u;
-            if constexpr (P::kReads && kDense) {
-#pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                    const int at = (4 * rq + r) * kHCols + 4 * ((cl >> 2) ^ rq) + (cl & 3);
-                    ym[r] = Ys[at];
-                    if constexpr (SECOND) yc[r] = Ys[P::kYs + at];
-                }
-            } else if constexpr (P::kReads) {
-                word = reinterpret_cast<const uint32_t*>(Ys)[cl];
-                if constexpr (SECOND) word2 = reinterpret_cast<const uint32_t*>(Ys + P::kYs)[cl];
-            }
-            float pv[4], qv[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-                const int b = 4 * rq + r;  // bit of the word row, local data row
-                const float v = wh[j][r];
-                float p, q;
-                if constexpr (E::kIdentity == 1) {
-                    p = v;
-                    q = v + 1.f;
-                } else if constexpr (E::kIdentity == 2) {
-                    p = v + ym[r];
-                    q = v - ym[r];
-                } else if constexpr (E::kIdentity == 3) {
-                    // o2 sums o1 after each stripe: weight stripe j's rounded
-                    // WH by S - j, exactly (8 significant bits times S < 2^16).
-                    p = mxu_operand<E::kRound>(v);
-                    q = (float)(Mp / bm - stripe) * p;
-                } else {
-                    const float a = v + eps;
-                    const float bb = (E::kClampB ? fmaxf(1.f - v, 0.f) : 1.f - v) + eps;
-                    const float rr = 1.f / (a * bb);
-                    const bool in_region = row0 + b * bmw < m_real && col < n_real;
-                    if constexpr (kDense) {
-                        const float c = SECOND ? yc[r] : 1.f - ym[r];
-                        p = ym[r] * (bb * rr);
-                        q = c * (a * rr);
-                        // Explicit fmaf: one rounding, the same in every instance.
-                        if (LOSS && in_region) ll += (double)fmaf(ym[r], logf(a), c * logf(bb));
-                    } else if constexpr (E::kSelect) {
-                        const bool bit = (word >> b) & 1u;
-                        p = bit ? bb * rr : 0.f;
-                        float sel;
-                        if (SECOND) {
-                            const bool bit2 = (word2 >> b) & 1u;
-                            q = bit2 ? a * rr : 0.f;
-                            sel = bit ? a : (bit2 ? bb : 1.f);
-                        } else {
-                            q = bit ? 0.f : a * rr;
-                            sel = bit ? a : bb;
-                        }
-                        if (LOSS && in_region) ll += (double)logf(sel);
-                    } else {
-                        // ym unpacked to a float; the products and both logs
-                        // give the select form's values bitwise (1*x = x,
-                        // 0*x + y = y).
-                        static_assert(!SECOND, "the product form takes one operand");
-                        const float ymf = (float)((word >> b) & 1u);
-                        const float c = 1.f - ymf;
-                        p = ymf * (bb * rr);
-                        q = c * (a * rr);
-                        if (LOSS && in_region) ll += (double)fmaf(ymf, logf(a), c * logf(bb));
-                    }
-                }
-                pv[r] = mxu_operand<E::kRound>(p);
-                qv[r] = mxu_operand<E::kIdentity == 3 ? Round::kNone : E::kRound>(q);
-            }
-            if constexpr (TERMS) {
-                const int chunk = cl * (kHRows / 4) + (rq ^ (cl & 7));
-                reinterpret_cast<float4*>(Ps)[chunk] = f4(pv);
-                reinterpret_cast<float4*>(Qs)[chunk] = f4(qv);
-            }
-        }
-        __syncthreads();  // Ps, Qs written; the operand tile is consumed
-        if (w + 1 < w_end) stage(w + 1, st ^ 1);
-
-        // ---- phase B: the accumulation over the step's 32 data rows
-        if constexpr (TERMS) {
-            const float4* P4 = reinterpret_cast<const float4*>(Ps);
-            const float4* Q4 = reinterpret_cast<const float4*>(Qs);
-            const float4* W4 = reinterpret_cast<const float4*>(Ws);
-#pragma unroll
-            for (int r4 = 0; r4 < kHRows / 4; ++r4) {
-                float4 p[4], q[4];
-#pragma unroll
-                for (int c = 0; c < 4; ++c) {
-                    const int chunk = (cg + 16 * c) * (kHRows / 4) + (r4 ^ swp);
-                    p[c] = P4[chunk];
-                    q[c] = Q4[chunk];
-                }
-#pragma unroll
-                for (int i = 0; i < TK; ++i) {
-                    if (i > 0 && 16 * i >= k) break;  // uniform: every row kg + 16 i >= k
-                    const float4 wv = W4[(kg + 16 * i) * (kHRows / 4) + (r4 ^ swk)];
-#pragma unroll
-                    for (int r = 0; r < 4; ++r)
-#pragma unroll
-                        for (int c = 0; c < 4; ++c) {
-                            num[i][c] = fmaf(lane(wv, r), lane(p[c], r), num[i][c]);
-                            den[i][c] = fmaf(lane(wv, r), lane(q[c], r), den[i][c]);
-                        }
-                }
-            }
-        }
-    }
-
-    if constexpr (TERMS) {
-        const size_t base = (z * S + s) * k * Np;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int col = c0 + cg + 16 * c;
-            if (col >= Np) continue;
-#pragma unroll
-            for (int i = 0; i < TK; ++i) {
-                const int kk = kg + 16 * i;
-                if (kk >= k) continue;
-                num_out[base + (size_t)kk * Np + col] = num[i][c];
-                den_out[base + (size_t)kk * Np + col] = den[i][c];
-            }
-        }
-    }
-
-    if constexpr (LOSS) {
-        // Block sum of ll in a fixed order: warp tree, then thread 0 over
-        // the warps.
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) ll += __shfl_down_sync(0xffffffffu, ll, off);
-        if ((tid & 31) == 0) ll_warp[tid >> 5] = ll;
-        __syncthreads();
-        if (tid == 0) {
-            double acc = 0.0;
-            for (int i = 0; i < kThreads / 32; ++i) acc += ll_warp[i];
-            ll_part[(z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = acc;
-        }
+        if constexpr (TERMS)
+            hpass_write<TK>(num, den, num_out, den_out, (z * S + s) * k * Np, c0, cg, kg, k, Np);
+        if constexpr (LOSS)
+            hpass_ll_sum<kThreads>(ll, ll_warp, tid, [] { __syncthreads(); }, ll_part, z);
     }
 }
 
@@ -1123,10 +1406,25 @@ struct HpassLauncher {
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                    (int)cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return err;
+        if constexpr (P::kSplit) {
+            // setmaxnreg.inc waits until the block holds the registers it
+            // asks for: refuse a build that launches the block with fewer
+            // than the two roles take together.
+            cudaFuncAttributes attr;
+            err = cudaFuncGetAttributes(&attr, kernel);
+            if (err != cudaSuccess) return err;
+            if (attr.numRegs * P::kBlock < P::kProducers * P::kProducerRegs +
+                                               (P::kBlock - P::kProducers) * P::kConsumerRegs)
+                return cudaErrorInvalidConfiguration;
+        }
         const dim3 grid((Np + kHCols - 1) / kHCols, nsplit, lanes);
-        kernel<<<grid, kThreads, P::kSmem, stream>>>(Wp, H, y, y2, num, den, ll_part, k, Mp, Np,
-                                                     bm, m_real, n_real, eps);
-        return cudaGetLastError();
+        kernel<<<grid, P::kBlock, P::kSmem, stream>>>(Wp, H, y, y2, num, den, ll_part, k, Mp, Np,
+                                                      bm, m_real, n_real, eps);
+        err = cudaGetLastError();
+        if constexpr (P::kSplit) {
+            if (err == cudaSuccess) ++nbmf_h_split_launches;
+        }
+        return err;
     }
 };
 

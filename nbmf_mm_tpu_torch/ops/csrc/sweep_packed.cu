@@ -48,4 +48,6 @@ int nbmf_w_terms_packed(const float* W, const float* H, const int32_t* words,
 
 const char* nbmf_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+long long nbmf_h_split_launches = 0;
+
 }  // extern "C"

@@ -41,14 +41,17 @@ same rules.
 ``LAUNCHES`` counts kernel launches per wrapper and operand form (the key is
 the wrapper's name with the form's suffix, :func:`tiers.suffix`) and
 ``LANES`` the lanes those launches carried, so a run can show that it went
-through the kernels, in which form and with how many lanes.  Pad handling: the data, W's pad columns and H's
-pad columns are zero; the log-likelihood is masked exactly to
-``row < m_real and col < n_real`` (the JAX packed kernel instead adds
-``log(1 + eps)`` per pad entry).
+through the kernels, in which form and with how many lanes;
+``H_WS_LAUNCHES`` counts the launches that ran the warp-specialised fp32 H
+pass (:func:`h_warp_specialised`), as the library's launcher reports them.
+Pad handling: the data, W's pad columns and H's pad columns are zero; the
+log-likelihood is masked exactly to ``row < m_real and col < n_real`` (the
+JAX packed kernel instead adds ``log(1 + eps)`` per pad entry).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 from typing import NamedTuple, Optional, Tuple
@@ -61,6 +64,7 @@ from . import tiers
 __all__ = [
     "LAUNCHES",
     "LANES",
+    "H_WS_LAUNCHES",
     "MAX_LANES",
     "per_lane",
     "PACKED_WORD_BITS",
@@ -75,6 +79,7 @@ __all__ = [
     "blocks_per_sm",
     "w_blocks_per_sm",
     "w_warp_specialised",
+    "h_warp_specialised",
     "even_chunks",
     "WSplit",
     "column_chunks",
@@ -109,6 +114,9 @@ PACKED_FORMS = ("f32", "bf16r", "tf32r")
 LAUNCHES = {name + tiers.suffix(form): 0 for name in ("hloss_terms_packed", "w_terms_packed")
             for form in PACKED_FORMS}
 LANES = dict(LAUNCHES)
+# Launches that ran the warp-specialised fp32 H pass (k = 129..256), by
+# wrapper, as the library reports them (:func:`_split_launches`).
+H_WS_LAUNCHES = {"hloss_terms_packed": 0}
 
 # The W pass's block (csrc/sweep_kernels.cuh ``wpass_kernel``): 64 data rows
 # (two word rows) by a column chunk walked in 32-column tiles.
@@ -394,6 +402,13 @@ def w_warp_specialised(k: int) -> bool:
     """Whether the fp32 W pass runs its warp-specialised block at ``k``
     (``WPass::kSplit``, ``64 < k <= 128``)."""
     return 64 < k <= 128
+
+
+def h_warp_specialised(k: int) -> bool:
+    """Whether the fp32 H pass runs its warp-specialised block at ``k``
+    (``HPass::kSplit``, ``128 < k <= 256``: one producer and two consumer
+    warpgroups, one block an SM, as :func:`blocks_per_sm` counts it)."""
+    return 128 < k <= MAX_RANK
 
 
 def even_chunks(n: int, nsplit: int) -> Tuple[Tuple[int, int], ...]:
@@ -712,8 +727,17 @@ def _check_aligned(who, lane_strides=(), **tensors):
             raise ValueError(f"{who}: a lane stride of {stride} floats breaks 16-byte alignment")
 
 
+def _split_launches(lib):
+    """The launches of the warp-specialised H pass the library's launcher has
+    counted (``nbmf_h_split_launches``), or None for a stand-in that is not
+    a loaded library."""
+    if not isinstance(lib, ctypes.CDLL):
+        return None
+    return ctypes.c_longlong.in_dll(lib, "nbmf_h_split_launches").value
+
+
 def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=True,
-                  loss=True):
+                  loss=True, split_counts=None):
     """Allocate the outputs and scratch of an H-pass entry point (packed or
     dense; with ``terms=False`` the ll-only one, with ``loss=False`` one
     without ll), the row split's partials (:func:`plan_h_split`) and W's
@@ -721,7 +745,9 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
     the TF32 copies W^T, W's phase-B copy and H^T: :func:`plan_wgmma`), and
     launch it on the current stream.  Returns
     ``(Num, Den, ll)``, ``Num``/``Den`` None without terms, ``ll`` None
-    without loss.  ``y`` may be None for an entry that reads no data.
+    without loss.  ``y`` may be None for an entry that reads no data.  If the
+    launch ran the warp-specialised body, as the library reports it,
+    ``split_counts[who]`` goes up by one.
 
     Factors with a leading lane axis ``R`` go through the one launch; every
     output and scratch array gains that axis, and the split is planned as
@@ -761,10 +787,13 @@ def _launch_hloss(entry, who, W, H, y, y2, *, eps, m_real, n_real, bm, terms=Tru
         if plan.scratch is not None:
             num_part, den_part = (torch.empty((lanes, *plan.scratch), **f32) for _ in range(2))
         outs = (num.data_ptr(), den.data_ptr(), _ptr(num_part), _ptr(den_part))
+    split_before = _split_launches(lib) if split_counts and who in split_counts else None
     err = getattr(lib, entry)(W.data_ptr(), H.data_ptr(), _ptr(y), _ptr(y2), *outs,
                               _ptr(ll_part), _ptr(ll), *map(_ptr, staged), k, Mp, Np, bm, m_real,
                               n_real, plan.nsplit, lanes, float(eps), dev.index or 0, stream)
     _raise_on_error(lib, who, err)
+    if split_before is not None and _split_launches(lib) > split_before:
+        split_counts[who] += 1
     return num, den, ll
 
 
@@ -839,7 +868,7 @@ def hloss_terms_packed(
                         n_real=n_real, bm=bm, precision=precision)
     lanes = _check_cuda_operands(name, W, H, words, words2, bm, batched=True)
     out = _launch_hloss("nbmf_" + name, name, W, H, words, words2, eps=eps, m_real=m_real,
-                        n_real=n_real, bm=bm)
+                        n_real=n_real, bm=bm, split_counts=H_WS_LAUNCHES)
     LAUNCHES[name] += 1
     LANES[name] += lanes or 1
     return out

@@ -37,7 +37,10 @@ operands by the same rules.
 Each wrapper takes CPU tensors to its plain version and launches its kernel
 for CUDA tensors, or raises; ``LAUNCHES`` counts the launches per operand
 form (the key is the wrapper's name with the form's suffix,
-:func:`tiers.suffix`) and ``LANES`` the lanes they carried.  The three production
+:func:`tiers.suffix`) and ``LANES`` the lanes they carried;
+``H_WS_LAUNCHES`` counts the float32 H-pass launches that ran the
+warp-specialised block (:func:`cuda_sweep.h_warp_specialised`), as the
+library's launcher reports them.  The three production
 passes (not ``h_terms``) also take factors with a leading lane axis,
 ``W (R, k, Mp)`` with ``H (R, k, Np)``, over the same data, as the packed
 passes do (:mod:`~nbmf_mm_tpu_torch.ops.cuda_sweep`): one launch for all
@@ -58,6 +61,7 @@ from . import tiers
 __all__ = [
     "LAUNCHES",
     "LANES",
+    "H_WS_LAUNCHES",
     "hloss_terms_plain",
     "h_terms_plain",
     "w_terms_plain",
@@ -71,6 +75,9 @@ __all__ = [
 LAUNCHES = {name + tiers.suffix(form): 0
             for name in ("hloss_terms", "h_terms", "w_terms", "loglik_sum") for form in tiers.FORMS}
 LANES = {name: 0 for name in LAUNCHES if not name.startswith("h_terms")}
+# Launches that ran the warp-specialised float32 H pass (k = 129..256), by
+# wrapper, as the library reports them.
+H_WS_LAUNCHES = {"hloss_terms": 0, "h_terms": 0}
 
 
 # ------------------------------------------------------------ plain versions
@@ -164,7 +171,7 @@ def hloss_terms(
                            n_real=n_real, precision=precision)
     name, entry, lanes = _checked("hloss_terms", W, H, Ym, Yc, bm, precision, batched=True)
     out = cs._launch_hloss(entry, name, W, H, Ym, Yc, eps=eps, m_real=m_real,
-                           n_real=n_real, bm=bm)
+                           n_real=n_real, bm=bm, split_counts=H_WS_LAUNCHES)
     LAUNCHES[name] += 1
     LANES[name] += lanes or 1
     return out
@@ -190,7 +197,7 @@ def h_terms(
     name, entry, _ = _checked("h_terms", W, H, Ym, Yc, bm, precision)
     Mp, Np = Ym.shape
     num, den, _ = cs._launch_hloss(entry, name, W, H, Ym, Yc, eps=eps, m_real=Mp,
-                                   n_real=Np, bm=bm, loss=False)
+                                   n_real=Np, bm=bm, loss=False, split_counts=H_WS_LAUNCHES)
     LAUNCHES[name] += 1
     return num, den
 

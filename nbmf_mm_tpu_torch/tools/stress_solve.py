@@ -609,11 +609,16 @@ def fp32_smem(which: str, k: int, *, dense: bool, second: bool, terms: bool = Tr
     arrays.  ``n_out=2`` is the W probe that reads no operand and forms no
     ``1 - h`` (``chain3_tile``).  The W pass at TK = 8 (its producer and
     consumer warps) holds four H stages, three of 1 - h and Ps/Qs, and two
-    of the operand tiles."""
+    of the operand tiles; the H pass at TK = 16 with its terms (its producer
+    and consumer warps) three W stages and two each of Ps/Qs and of the
+    operand tiles."""
     kpad = 16 * _tk(k)
     nops = 2 if second else 1
     if which == "h":
         ys = 32 * 64 if dense else 64
+        if terms and _tk(k) == 16:
+            floats = kpad * 64 + 3 * kpad * 32 + 2 * 2 * 64 * 32 + 2 * nops * ys
+            return 4 * floats + 8 * 4  # ll_warp of the four producer warps
         floats = kpad * 64 + 2 * kpad * 32 + (2 * 64 * 32 if terms else 0) + nops * ys
         return 4 * floats + 8 * 8  # ll_warp
     reads = n_out == 1

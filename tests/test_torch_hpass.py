@@ -89,6 +89,36 @@ def test_plan_at_the_headline():
     assert plan.chunks == tuple((64 * s, 64 * s + 64) for s in range(5))
 
 
+@pytest.mark.parametrize("k, split", [(1, False), (128, False), (129, True), (200, True),
+                                      (256, True)])
+def test_h_warp_specialised_at_its_edges(k, split):
+    """The warp-specialised H pass takes exactly the TK = 16 ranks, where one
+    block an SM runs, as the split planner counts it."""
+    assert cs.h_warp_specialised(k) is split
+    assert cs.blocks_per_sm(k) == (1 if split else 2)
+
+
+def test_plan_at_the_k256_headline():
+    """10^4 x 10^4 at K=256 on 132 SMs: one block an SM, 157 column blocks,
+    4 chunks of 80 word rows, 628 blocks (1.31 GB of partials over 16
+    lanes)."""
+    assert cs.blocks_per_sm(256) == 1
+    plan = cs.plan_h_split(10_240, 10_000, 256, H100_SMS)
+    assert plan.nsplit == 4 and plan.blocks == 628
+    assert plan.scratch == (4, 256, 10_000)
+    assert plan.chunks == tuple((80 * s, 80 * s + 80) for s in range(4))
+    assert 16 * 2 * 4 * plan.scratch[1] * plan.scratch[2] * 4 == 1_310_720_000
+
+
+def test_warp_specialised_counters_name_float32_wrappers():
+    """The launches of the warp-specialised block are counted per float32
+    wrapper, beside the wrappers' own launch counters."""
+    assert set(cs.H_WS_LAUNCHES) == {"hloss_terms_packed"} and set(cs.H_WS_LAUNCHES) <= set(
+        cs.LAUNCHES)
+    assert set(ds.H_WS_LAUNCHES) == {"hloss_terms", "h_terms"} and set(ds.H_WS_LAUNCHES) <= set(
+        ds.LAUNCHES)
+
+
 @pytest.mark.parametrize("nsplit", [0, 9])
 def test_even_chunks_rejects_more_chunks_than_word_rows(nsplit):
     with pytest.raises(ValueError):
@@ -411,6 +441,29 @@ def test_hpass_tune_variants_edit_only_the_h_pass():
         assert text.count("{") == text.count("}"), name
         assert w_pass in text, name
         assert name == "production" or text != header
+
+
+def test_hpass_tune_variants_at_rank_256_edit_only_the_h_pass():
+    """At k > 128 the tool's variants are those of the warp-specialised
+    body: the parent's turn-taking body, the two-block design, the body
+    without setmaxnreg and its two leave-one-outs; none edits the W pass."""
+    from nbmf_mm_tpu_torch.ops import _build
+    from nbmf_mm_tpu_torch.tools.hpass_tune import variants
+
+    header = (_build.CSRC / "sweep_kernels.cuh").read_text()
+    texts = variants(header, 256)
+    assert set(texts) == {"production", "turn_taking", "two_block", "no_setmaxnreg",
+                          "phase_a_x0", "phase_b_x0"}
+    assert texts["production"] == header
+    rule = "// ------------------------------------------------------------ "
+    w_pass = header[header.index(rule + "W pass"):header.index(rule + "H pass")]
+    for name, text in texts.items():
+        assert text.count("{") == text.count("}"), name
+        assert w_pass in text, name
+        assert name == "production" or text != header
+    assert "kSplit = false;" in texts["turn_taking"] and "kSplit = false;" in texts["two_block"]
+    assert "constexpr int kHCols = 32;" in texts["two_block"]
+    assert 'asm volatile("setmaxnreg' not in texts["no_setmaxnreg"]
 
 
 # ------------------------------------------------- a leading lane axis on K1

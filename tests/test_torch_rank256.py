@@ -9,8 +9,9 @@
 - The spans: one ``nbmf_mm.hpass`` a pass over all lanes and one
   ``nbmf_mm.wpass``, with the packed fill's H pass one more.
 
-The ``cuda`` case runs the 16-lane rank-256 fit on the card's kernels and
-skips here; on a machine with a card:
+The ``cuda`` cases run the 16-lane rank-256 fit on the card's kernels, and
+16-lane fits at ranks 128 and 256 with the warp-specialised H pass's launch
+counter read, and skip here; on a machine with a card:
 
     python3 -m pytest tests/test_torch_rank256.py -m cuda --confcutdir=tests -p no:cacheprovider
 """
@@ -125,3 +126,19 @@ def test_sixteen_lanes_at_rank_256_on_the_card_follow_the_reference(card):
     limits = manifest.load_cell("headline_k256_restarts16").limits  # the cell's own
     correct, checks = compare.verdict(_gaps(res, ref), limits)
     assert correct, checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, engaged", [(128, False), (256, True)])
+def test_warp_specialised_h_pass_runs_above_rank_128_on_the_card(card, k, engaged):
+    """A 16-lane fit at rank 256 launches the warp-specialised H pass (its
+    counter rises by a launch a sweep and one for the fill); one at rank 128
+    never does."""
+    from nbmf_mm_tpu_torch.ops import cuda_sweep as cs
+
+    Y = _binary(512, 384)
+    before = cs.H_WS_LAUNCHES["hloss_terms_packed"]
+    solve(pack_matrix(Y.to(card), 256, device=card), k, n_init=16, backend="fused", device=card,
+          max_iter=5, tol=0.0, random_state=SEED, device_results=True)
+    launched = cs.H_WS_LAUNCHES["hloss_terms_packed"] - before
+    assert (launched > 0) is engaged, launched

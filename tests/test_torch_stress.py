@@ -235,6 +235,19 @@ def test_fp32_shared_memory_restates_the_kernels():
     assert cs.w_blocks_per_sm(64) == 2 and cs.w_blocks_per_sm(65) == 1
 
 
+def test_fp32_shared_memory_of_the_warp_specialised_h_pass():
+    # sweep_kernels.cuh: HPass::kSmem at TK = 16 (k = 256) with the terms: H
+    # (256*64), three W slices (3*256*32), two stages of Ps/Qs (2*2*64*32)
+    # and of the operand tiles, dense two (2*2*32*64) or packed one (2*64),
+    # plus the four producer warps' ll_warp; the dense block with its second
+    # operand is the largest and fits the 227 KiB a block may use.
+    assert st.fp32_smem("h", 256, dense=True, second=True) == 4 * 57344 + 32
+    assert st.fp32_smem("h", 256, dense=False, second=False) == 4 * 49280 + 32
+    assert st.fp32_smem("h", 256, dense=True, second=True) <= 232_448
+    assert st.fp32_smem("h", 256, dense=True, second=False, terms=False) == 4 * (
+        256 * 64 + 2 * 256 * 32 + 32 * 64) + 64
+
+
 @pytest.mark.parametrize("g", [
     st.Geometry(1, 1, 1, 1, "f32", 1, 1),
     st.Geometry(255, 4, 33, 2, "bf16r", 1, 132),

@@ -361,6 +361,32 @@ def test_lanes_reach_the_entry_point_with_lane_scratch(stub):
         assert len(args) == len(_build._SIGNATURES[entry]) and args[-4] == R  # lanes, eps, device, stream
 
 
+@pytest.mark.parametrize("reported, counted", [((5, 6), 1), ((6, 6), 0)],
+                         ids=["reported", "not-reported"])
+def test_split_launches_are_counted_as_the_library_reports_them(stub, monkeypatch, reported,
+                                                                 counted):
+    """The float32 H wrappers count a launch of the warp-specialised body
+    when the library's own count rises across it, whatever the rank; the
+    other wrappers do not read it, and a stand-in library reports none."""
+    assert cs._split_launches(stub) is None
+    calls = _calls(_operands(k=256), "f32")
+    for name in ("hloss_terms_packed", "hloss_terms", "h_terms"):
+        counts = cs.H_WS_LAUNCHES if name in cs.H_WS_LAUNCHES else ds.H_WS_LAUNCHES
+        reads = iter(reported)
+        monkeypatch.setattr(cs, "_split_launches", lambda lib: next(reads))
+        before = counts[name]
+        calls[name]()
+        assert counts[name] == before + counted, name
+        assert next(reads, None) is None  # read once before and once after the launch
+
+    def unread(lib):
+        raise AssertionError("read by a wrapper that cannot run the warp-specialised body")
+
+    monkeypatch.setattr(cs, "_split_launches", unread)
+    for name in ("loglik_sum", "w_terms", "w_terms_packed"):
+        calls[name]()
+
+
 def test_stage_bf16_reaches_its_entry_point(stub):
     o = _operands(k=20)
     plan = cs.plan_wgmma(20, o["Mp"], o["Np"])
